@@ -1,0 +1,166 @@
+"""Envmap NEE sampling, pdf and bilinear fetch for small emitters.
+
+Kernels D (``env_sample_dir``), D′ (``env_pdf_dir``) and E
+(``env_lookup_bilinear``) of ``csrc/envkernels.cu``, which replace
+``materialist_tpu/ops/pallas/envkernels.py``. Each wrapper takes its
+plain PyTorch version for CPU tensors and launches the kernel for CUDA
+tensors; the plain versions follow ``materialist_tpu/ops/envmap.py``
+(``sample``, ``pdf_dir``, the small-map bilinear fetch) with plain
+indexing in place of one-hot contractions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from materialist_tpu_torch.ops.kernels import _lib
+
+PI = math.pi
+
+
+# ---------------------------------------------------------------- plain
+
+def _interp_cdf(at, prev, x):
+    return torch.clamp((x - prev) / torch.clamp_min(at - prev, 1e-12),
+                       0.0, 1.0)
+
+
+def uv_to_dir(u, v, height: int, width: int):
+    phi = 2.0 * PI * u / width
+    theta = PI * v / height
+    st = torch.sin(theta)
+    return torch.stack([st * torch.sin(phi), torch.cos(theta),
+                        -st * torch.cos(phi)], dim=-1)
+
+
+def env_sample_dir_plain(m_cdf, m_pdf, c_cdf, c_pdf, u2):
+    h, w = c_cdf.shape
+    x0, x1 = u2[..., 0], u2[..., 1]
+    v_idx = torch.clamp(torch.sum(m_cdf < x0[..., None], -1), 0, h - 1)
+    m_prev = torch.cat([m_cdf.new_zeros(1), m_cdf[:-1]])
+    dv = _interp_cdf(m_cdf[v_idx], m_prev[v_idx], x0)
+    pdf_m = m_pdf[v_idx]
+    v = v_idx.to(torch.float32) + dv
+    row_cdf = c_cdf[v_idx]                                   # (..., W)
+    u_idx = torch.clamp(torch.sum(row_cdf < x1[..., None], -1), 0, w - 1)
+    at_c = torch.gather(row_cdf, -1, u_idx[..., None])[..., 0]
+    prev_c = torch.where(
+        u_idx > 0,
+        torch.gather(row_cdf, -1,
+                     torch.clamp_min(u_idx - 1, 0)[..., None])[..., 0], 0.0)
+    du = _interp_cdf(at_c, prev_c, x1)
+    pdf_c = c_pdf[v_idx, u_idx]
+    u = u_idx.to(torch.float32) + du
+    theta = v * PI / h
+    wi = uv_to_dir(u, v, h, w)
+    sin_theta = torch.clamp_min(torch.sin(theta), 1e-6)
+    pdf = (h * w) * (pdf_c * pdf_m) / (2.0 * PI * PI * sin_theta)
+    return wi, pdf[..., None]
+
+
+def dir_to_uv(d, height: int, width: int):
+    phi = torch.atan2(d[..., 0], -d[..., 2]) / (2.0 * PI)
+    u = (phi - torch.floor(phi)) * width
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    v = theta / PI * height
+    return u, v
+
+
+def env_pdf_dir_plain(m_pdf, c_pdf, d):
+    h, w = c_pdf.shape
+    u, v = dir_to_uv(d, h, w)
+    ui = torch.clamp(u.to(torch.int32), 0, w - 1).long()
+    vi = torch.clamp(v.to(torch.int32), 0, h - 1).long()
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    sin_theta = torch.clamp_min(torch.sin(theta), 1e-6)
+    pdf = (h * w) * (c_pdf[vi, ui] * m_pdf[vi]) / (2.0 * PI * PI * sin_theta)
+    return pdf[..., None]
+
+
+def env_lookup_bilinear_plain(env, u0i, v0i, du, dv):
+    h, w = env.shape[0], env.shape[1]
+    flat = env.reshape(h * w, 3)
+    u0 = u0i.long()
+    v0 = v0i.long()
+    u1 = torch.where(u0 + 1 >= w, 0, u0 + 1)
+    v1 = torch.clamp_max(v0 + 1, h - 1)
+    du = du[..., None]
+    dv = dv[..., None]
+    acc = (1.0 - du) * (1.0 - dv) * flat[v0 * w + u0]
+    acc = acc + du * (1.0 - dv) * flat[v0 * w + u1]
+    acc = acc + (1.0 - du) * dv * flat[v1 * w + u0]
+    return acc + du * dv * flat[v1 * w + u1]
+
+
+# -------------------------------------------------------------- kernels
+
+def env_sample_dir(m_cdf, m_pdf, c_cdf, c_pdf, u2):
+    """Kernel D: NEE sample (wi (..., 3), pdf (..., 1)) from uniforms
+    u2 (..., 2) under the (H, W) conditional / (H,) marginal tables."""
+    if u2.device.type == "cpu":
+        return env_sample_dir_plain(m_cdf, m_pdf, c_cdf, c_pdf, u2)
+    h, w = c_cdf.shape
+    dev = u2.device
+    shape = u2.shape[:-1]
+    u2f = u2.reshape(-1, 2).contiguous()
+    m = u2f.shape[0]
+    for name, t, shp in (("m_cdf", m_cdf, (h,)), ("m_pdf", m_pdf, (h,)),
+                         ("c_cdf", c_cdf, (h, w)), ("c_pdf", c_pdf, (h, w)),
+                         ("u2", u2f, (m, 2))):
+        _lib.expect(t, name, torch.float32, shp, dev)
+    wi = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    pdf = torch.empty((m,), dtype=torch.float32, device=dev)
+    if m:
+        _lib.check(_lib.lib().env_sample_dir_launch(
+            m_cdf.data_ptr(), m_pdf.data_ptr(), c_cdf.data_ptr(),
+            c_pdf.data_ptr(), u2f.data_ptr(), wi.data_ptr(), pdf.data_ptr(),
+            m, h, w, _lib.stream_ptr(u2f)), "env_sample_dir")
+        _lib.LAUNCHES["env_sample_dir"] += 1
+    return wi.reshape(*shape, 3), pdf.reshape(*shape, 1)
+
+
+def env_pdf_dir(m_pdf, c_pdf, d):
+    """Kernel D′: solid-angle pdf (..., 1) of directions d (..., 3)."""
+    if d.device.type == "cpu":
+        return env_pdf_dir_plain(m_pdf, c_pdf, d)
+    h, w = c_pdf.shape
+    dev = d.device
+    shape = d.shape[:-1]
+    df = d.reshape(-1, 3).contiguous()
+    m = df.shape[0]
+    _lib.expect(m_pdf, "m_pdf", torch.float32, (h,), dev)
+    _lib.expect(c_pdf, "c_pdf", torch.float32, (h, w), dev)
+    _lib.expect(df, "d", torch.float32, (m, 3), dev)
+    pdf = torch.empty((m,), dtype=torch.float32, device=dev)
+    if m:
+        _lib.check(_lib.lib().env_pdf_dir_launch(
+            m_pdf.data_ptr(), c_pdf.data_ptr(), df.data_ptr(),
+            pdf.data_ptr(), m, h, w, _lib.stream_ptr(df)), "env_pdf_dir")
+        _lib.LAUNCHES["env_pdf_dir"] += 1
+    return pdf.reshape(*shape, 1)
+
+
+def env_lookup_bilinear(env, u0i, v0i, du, dv):
+    """Kernel E: exact-f32 bilinear fetch (..., 3) from an (H, W, 3)
+    emitter at tap coords u0i, v0i (int32) and fractions du, dv."""
+    if env.device.type == "cpu":
+        return env_lookup_bilinear_plain(env, u0i, v0i, du, dv)
+    h, w = env.shape[0], env.shape[1]
+    dev = env.device
+    shape = u0i.shape
+    args = [x.reshape(-1).contiguous() for x in (u0i, v0i, du, dv)]
+    m = args[0].shape[0]
+    _lib.expect(env, "env", torch.float32, (h, w, 3), dev)
+    for name, t, dt in zip(("u0i", "v0i", "du", "dv"), args,
+                           (torch.int32, torch.int32, torch.float32,
+                            torch.float32)):
+        _lib.expect(t, name, dt, (m,), dev)
+    out = torch.empty((m, 3), dtype=torch.float32, device=dev)
+    if m:
+        _lib.check(_lib.lib().env_lookup_bilinear_launch(
+            env.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(),
+            m, h, w, _lib.stream_ptr(env)), "env_lookup_bilinear")
+        _lib.LAUNCHES["env_lookup_bilinear"] += 1
+    return out.reshape(*shape, 3)

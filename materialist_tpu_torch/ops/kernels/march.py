@@ -1,0 +1,148 @@
+"""Paired lobe + NEE shadow march of a path vertex: kernel A of
+``csrc/march_pair.cu`` (replaces
+``materialist_tpu/ops/pallas/march_kernel.py::march_pair``).
+
+The plain version is two ``render/screenspace.py::march_mip`` calls, as
+the JAX package's off-TPU path is. The tables and ``t_lo`` are computed
+here in torch; the kernel marches one ray per thread.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from materialist_tpu_torch.camera import Camera
+from materialist_tpu_torch.ops.kernels import _lib
+from materialist_tpu_torch.render import screenspace as ss
+
+
+def _mip_factor(h: int, w: int) -> int:
+    """Largest power-of-two factor whose mip has at most 1024 texels."""
+    f = 1
+    while (h // f) * (w // f) > 1024:
+        f *= 2
+    return f
+
+
+def _fine_factor(h: int, w: int) -> int:
+    """Factor whose fine table has at most 4096 texels."""
+    f = 1
+    while (h // f) * (w // f) > 4096:
+        f *= 2
+    return f
+
+
+class MarchTables(NamedTuple):
+    """Per-geometry march inputs, built once and shared by every call."""
+    dist: torch.Tensor      # (H, W) march depth
+    valid: torch.Tensor     # (H, W) march validity
+    mip: torch.Tensor       # (H/mip_f, W/mip_f) min depth
+    fine: torch.Tensor      # (H/fine_f, W/fine_f) mean depth
+    t_lo: torch.Tensor      # (1,) t_min_frac · scene scale
+    mip_f: int
+    fine_f: int
+
+
+def march_tables(dist_map, valid_map, t_min_frac: float = 2e-3):
+    h, w = dist_map.shape
+    mip_f = _mip_factor(h, w)
+    fine_f = _fine_factor(h, w)
+    scale = torch.clamp_min(
+        torch.max(torch.where(valid_map, dist_map, 0.0)), 1e-6)
+    return MarchTables(dist_map, valid_map,
+                       ss.build_min_mip(dist_map, valid_map, mip_f)
+                       .contiguous(),
+                       ss.build_fine_table(dist_map, valid_map, fine_f)
+                       .contiguous(),
+                       (t_min_frac * scale).reshape(1).to(torch.float32),
+                       mip_f, fine_f)
+
+
+def march_pair_plain(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
+                     n_steps, fine_steps, shadow_steps, shadow_fine_steps,
+                     t_min_frac, t_max_frac, bias_frac, interval_frac):
+    hit = ss.march_mip(cam, tab.dist, tab.valid, tab.mip, origin, d_lobe,
+                       n_steps=n_steps, fine_steps=fine_steps,
+                       t_min_frac=t_min_frac, t_max_frac=t_max_frac,
+                       bias_frac=bias_frac, interval_frac=interval_frac,
+                       mip_factor=tab.mip_f, fine_table=tab.fine,
+                       fine_factor=tab.fine_f)
+    shad = ss.march_mip(cam, tab.dist, tab.valid, tab.mip, origin, d_nee,
+                        n_steps=shadow_steps,
+                        fine_steps=max(shadow_fine_steps, 1),
+                        t_min_frac=t_min_frac, t_max_frac=t_max_frac,
+                        bias_frac=bias_frac, interval_frac=interval_frac,
+                        mip_factor=tab.mip_f,
+                        shadow_only=shadow_fine_steps == 0,
+                        fine_table=tab.fine, fine_factor=tab.fine_f).hit
+    return hit, shad
+
+
+def march_single(cam: Camera, tab: MarchTables, origin, direction,
+                 n_steps: int = 24, fine_steps: int = 6,
+                 t_min_frac: float = 2e-3, t_max_frac: float = 3.0,
+                 bias_frac: float = 4e-3, interval_frac: float = 2.0):
+    """One lobe march (the ``nee=False`` path). Its kernel, A′
+    (``march_kernel.py::march_fused``), is not ported yet (ROADMAP
+    queue 2), so CUDA tensors raise; CPU tensors take ``march_mip``."""
+    if origin.device.type != "cpu":
+        raise NotImplementedError(
+            "kernel A' (march_fused) is not ported yet: ROADMAP queue 2")
+    return ss.march_mip(cam, tab.dist, tab.valid, tab.mip, origin, direction,
+                        n_steps=n_steps, fine_steps=fine_steps,
+                        t_min_frac=t_min_frac, t_max_frac=t_max_frac,
+                        bias_frac=bias_frac, interval_frac=interval_frac,
+                        mip_factor=tab.mip_f, fine_table=tab.fine,
+                        fine_factor=tab.fine_f)
+
+
+def march_pair(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
+               n_steps: int = 24, fine_steps: int = 6,
+               shadow_steps: int = 16, shadow_fine_steps: int = 2,
+               t_min_frac: float = 2e-3, t_max_frac: float = 3.0,
+               bias_frac: float = 4e-3, interval_frac: float = 2.0):
+    """Both marches of the vertices origin (..., 3) along d_lobe and
+    d_nee (same shape). Returns (Hit, shadowed)."""
+    if origin.device.type == "cpu":
+        return march_pair_plain(cam, tab, origin, d_lobe, d_nee, n_steps,
+                                fine_steps, shadow_steps, shadow_fine_steps,
+                                t_min_frac, t_max_frac, bias_frac,
+                                interval_frac)
+    dev = origin.device
+    shape = origin.shape[:-1]
+    o = origin.reshape(-1, 3).contiguous()
+    dl = d_lobe.reshape(-1, 3).contiguous()
+    dn = d_nee.reshape(-1, 3).contiguous()
+    m = o.shape[0]
+    h, w = cam.height, cam.width
+    mh, mw = tab.mip.shape
+    fh, fw = tab.fine.shape
+    for name, t, shp in (("origin", o, (m, 3)), ("d_lobe", dl, (m, 3)),
+                         ("d_nee", dn, (m, 3)), ("mip", tab.mip, (mh, mw)),
+                         ("fine", tab.fine, (fh, fw)),
+                         ("t_lo", tab.t_lo, (1,))):
+        _lib.expect(t, name, torch.float32, shp, dev)
+    if mh * mw > 1024 or fh * fw > 4096:
+        raise ValueError("march tables exceed the kernel's shared memory")
+    hit = torch.empty((m,), dtype=torch.bool, device=dev)
+    idx = torch.empty((m,), dtype=torch.int32, device=dev)
+    t = torch.empty((m,), dtype=torch.float32, device=dev)
+    shad = torch.empty((m,), dtype=torch.bool, device=dev)
+    ratio = (t_max_frac / t_min_frac) ** (1.0 / max(n_steps - 1, 1))
+    s_ratio = (t_max_frac / t_min_frac) ** (1.0 / max(shadow_steps - 1, 1))
+    if m:
+        _lib.check(_lib.lib().march_pair_launch(
+            o.data_ptr(), dl.data_ptr(), dn.data_ptr(), tab.mip.data_ptr(),
+            tab.fine.data_ptr(), tab.t_lo.data_ptr(), hit.data_ptr(),
+            idx.data_ptr(), t.data_ptr(), shad.data_ptr(), m, h, w,
+            tab.mip_f, mh, mw, tab.fine_f, fh, fw, cam.focal, cam.cx, cam.cy,
+            1.0 - bias_frac, 1.0 + bias_frac, interval_frac, n_steps,
+            fine_steps, shadow_steps, max(shadow_fine_steps, 1), ratio,
+            s_ratio, int(shadow_fine_steps == 0), _lib.stream_ptr(o)),
+            "march_pair")
+        _lib.LAUNCHES["march_pair"] += 1
+    hit = hit.reshape(shape)
+    return (ss.Hit(hit, idx.reshape(shape), t.reshape(shape), ~hit),
+            shad.reshape(shape))

@@ -1,0 +1,158 @@
+"""Screen-space marching against the depth heightfield (counterpart of
+``materialist_tpu/render/screenspace.py``): the min-depth mip, the
+mean-depth fine table and the two-level ``march_mip``, which is the plain
+version of the march kernel (``ops/kernels/march.py``). Table reads are
+plain indexing. Everything here runs without gradients.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from materialist_tpu_torch.camera import Camera
+
+
+class Hit(NamedTuple):
+    hit: torch.Tensor      # (...,) bool
+    idx: torch.Tensor      # (...,) int32 flat pixel index of the hit
+    t: torch.Tensor        # (...,) ray parameter at the hit
+    exited: torch.Tensor   # (...,) ray left the view frustum (envmap miss)
+
+
+def build_min_mip(dist_map, valid_map, factor: int = 4):
+    """Min-depth mip with invalid texels excluded (large sentinel)."""
+    h, w = dist_map.shape
+    d = torch.where(valid_map, dist_map, 1.0e30)
+    return d.reshape(h // factor, factor, w // factor, factor).amin((1, 3))
+
+
+def build_fine_table(dist_map, valid_map, factor: int = 2):
+    """factor×factor mean depth over valid texels (sentinel where none)."""
+    if factor == 1:
+        return torch.where(valid_map, dist_map, 1.0e30)
+    h, w = dist_map.shape
+    v = valid_map.reshape(h // factor, factor, w // factor, factor)
+    d = torch.where(valid_map, dist_map, 0.0).reshape(
+        h // factor, factor, w // factor, factor)
+    cnt = v.sum((1, 3))
+    mean = d.sum((1, 3)) / torch.clamp_min(cnt, 1)
+    return torch.where(cnt > 0, mean, 1.0e30)
+
+
+def _ipow(x, n: int):
+    """x**n by binary exponentiation, the multiplication order of XLA's
+    integer_pow."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return torch.ones_like(x) if acc is None else acc
+
+
+def _fdiv(a, b: int):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def march_mip(cam: Camera, dist_map, valid_map, mip, origin, direction,
+              n_steps: int = 24, fine_steps: int = 6,
+              t_min_frac: float = 2e-3, t_max_frac: float = 3.0,
+              bias_frac: float = 4e-3, interval_frac: float = 2.0,
+              mip_factor: int = 4, shadow_only: bool = False,
+              fine_table=None, fine_factor: int = 1) -> Hit:
+    """Two-level march: exponential coarse scan over the min-depth mip
+    (start cell excluded, first two rising-edge intervals kept), fine
+    refinement against the mean-depth table, and the thickness test."""
+    scene_scale = torch.clamp_min(
+        torch.max(torch.where(valid_map, dist_map, 0.0)), 1e-6)
+    t_lo = t_min_frac * scene_scale
+    t_hi = t_max_frac * scene_scale
+    ratio = (t_hi / t_lo) ** (1.0 / max(n_steps - 1, 1))
+
+    h, w = dist_map.shape
+    mh, mw = mip.shape
+    batch = origin.shape[:-1]
+    dev = origin.device
+    if fine_table is None:
+        fine_table = build_fine_table(dist_map, valid_map, fine_factor)
+    fh, fw = fine_table.shape
+    mip_flat = mip.reshape(-1)
+    fine_flat = fine_table.reshape(-1)
+
+    def project(q):
+        uv = cam.project(q)
+        ui = torch.floor(uv[..., 0] + 0.5).to(torch.int32)
+        vi = torch.floor(uv[..., 1] + 0.5).to(torch.int32)
+        inside = (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
+        return ui, vi, inside
+
+    ui0, vi0, _ = project(origin)
+    start_cell = torch.clamp(_fdiv(vi0, mip_factor), 0, mh - 1) * mw \
+        + torch.clamp(_fdiv(ui0, mip_factor), 0, mw - 1)
+
+    prev_cand = torch.zeros(batch, dtype=torch.bool, device=dev)
+    edge_cnt = torch.zeros(batch, dtype=torch.int32, device=dev)
+    exited = torch.zeros(batch, dtype=torch.bool, device=dev)
+    t_prev = torch.full(batch, 1.0, device=dev) * t_lo
+    tb = [t_prev.clone(), t_prev.clone()]
+    tc = [t_prev.clone(), t_prev.clone()]
+    for i in range(n_steps):
+        t = t_lo * _ipow(ratio, i)
+        q = origin + t * direction
+        ray_d = -q[..., 2]
+        ui, vi, inside = project(q)
+        mi = torch.clamp(_fdiv(vi, mip_factor), 0, mh - 1) * mw \
+            + torch.clamp(_fdiv(ui, mip_factor), 0, mw - 1)
+        min_d = mip_flat[mi.long()]
+        cand = inside & (ray_d > min_d * (1.0 - bias_frac)) \
+            & (ray_d > 0.0) & (mi != start_cell) & ~exited
+        rising = cand & ~prev_cand
+        for s in range(2):
+            newk = rising & (edge_cnt == s)
+            tb[s] = torch.where(newk, t_prev, tb[s])
+            tc[s] = torch.where(newk, t, tc[s])
+        edge_cnt = edge_cnt + rising.to(torch.int32)
+        prev_cand = cand
+        exited = exited | (((~inside) | (ray_d <= 0.0)) & (edge_cnt == 0))
+        t_prev = torch.broadcast_to(t, batch)
+
+    found = edge_cnt > 0
+    if shadow_only:
+        return Hit(found, torch.zeros(batch, dtype=torch.int32, device=dev),
+                   tc[0], exited | ~found)
+
+    hit = torch.zeros(batch, dtype=torch.bool, device=dev)
+    t_hit = tc[0]
+    idx_hit = torch.zeros(batch, dtype=torch.int32, device=dev)
+    excess_hit = torch.zeros(batch, dtype=torch.float32, device=dev)
+    frac = (torch.arange(fine_steps, dtype=torch.float32, device=dev)
+            + 1.0) / fine_steps
+    for s in range(2):
+        lo_t = tb[s]
+        hi_t = tc[s] * ratio
+        gate = (edge_cnt > s) & ~hit
+        for k in range(fine_steps):
+            t = lo_t + (hi_t - lo_t) * frac[k]
+            q = origin + t[..., None] * direction
+            ray_d = -q[..., 2]
+            ui, vi, inside = project(q)
+            idx = torch.clamp(vi, 0, h - 1) * w + torch.clamp(ui, 0, w - 1)
+            fidx = torch.clamp(_fdiv(vi, fine_factor), 0, fh - 1) * fw \
+                + torch.clamp(_fdiv(ui, fine_factor), 0, fw - 1)
+            surf_d = fine_flat[fidx.long()]
+            ok = inside & (surf_d < 1.0e29)
+            excess = ray_d - surf_d - bias_frac * surf_d
+            crossing = ok & (excess > 0.0) & gate & ~hit
+            t_hit = torch.where(crossing, t, t_hit)
+            idx_hit = torch.where(crossing, idx, idx_hit)
+            excess_hit = torch.where(crossing, excess, excess_hit)
+            hit = hit | crossing
+
+    q = origin + t_hit[..., None] * direction
+    local = torch.clamp_min(-q[..., 2], 1e-6)
+    hit = hit & (excess_hit < interval_frac * local)
+    return Hit(hit, idx_hit.to(torch.int32), t_hit, exited | ~hit)

@@ -1,0 +1,113 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small shapes (chip_smoke.py checks them at the main path's shapes). Needs
+an NVIDIA GPU: marked ``cuda`` and skipped where there is none. Run on the
+card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``."""
+
+import pytest
+import torch
+
+from materialist_tpu_torch import rng
+from materialist_tpu_torch.camera import Camera
+from materialist_tpu_torch.ops import brdf
+from materialist_tpu_torch.ops import envmap as em
+from materialist_tpu_torch.ops.kernels import envkernels as ek
+from materialist_tpu_torch.ops.kernels import march as mk
+from materialist_tpu_torch.ops.kernels import rowops
+from materialist_tpu_torch.ops.kernels import shadebounce as sb
+from materialist_tpu_torch.render import shader
+from materialist_tpu_torch.render.scene import Materials, make_gbuffer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene(card):
+    g = torch.Generator().manual_seed(0)
+    res = 64
+    depth = 2.0 + 0.3 * torch.rand((res, res), generator=g)
+    depth[10:30, 20:40] -= 0.8
+    cam = Camera(res, res)
+    gb = make_gbuffer(depth, cam, flip_depth=False, device=card)
+    mats = Materials(0.2 + 0.7 * torch.rand((res, res, 3), generator=g),
+                     0.2 + 0.7 * torch.rand((res, res, 1), generator=g),
+                     0.5 * torch.rand((res, res, 1), generator=g),
+                     gb.normal_geo.cpu())
+    mats = Materials(*[m.to(card) for m in mats])
+    env = ((torch.rand((16, 32, 3), generator=g) + 0.1) * 2).to(card)
+    return cam, gb, mats, env
+
+
+def test_march_pair(card, scene):
+    cam, gb, _, env = scene
+    s, n = 2, cam.height * cam.width
+    tab = mk.march_tables(gb.dist, gb.valid)
+    k = rng.split(rng.key(1), 3)
+    wo = gb.wo.reshape(n, 3).expand(s, n, 3)
+    dl = brdf.sample_dirs(rng.uniform(k[0], (s, n), card),
+                          rng.uniform(k[1], (s, n, 2), card), wo,
+                          gb.normal_geo.reshape(n, 3),
+                          torch.full((n, 1), 0.5, device=card))
+    dn, _ = em.sample_dir(em.build_sampler(env),
+                          rng.uniform(k[2], (s, n, 2), card))
+    o = gb.position.reshape(n, 3).expand(s, n, 3)
+    kw = dict(n_steps=24, fine_steps=6, shadow_steps=16, shadow_fine_steps=2,
+              interval_frac=0.05)
+    hk, sk = mk.march_pair(cam, tab, o, dl, dn, **kw)
+    hp, sp = mk.march_pair_plain(cam, tab, o, dl, dn, t_min_frac=2e-3,
+                                 t_max_frac=3.0, bias_frac=4e-3, **kw)
+    for a, b in ((hk.hit, hp.hit), (hk.idx, hp.idx), (sk, sp)):
+        assert float((a == b).float().mean()) >= 0.999
+
+
+def test_shade_bounce_and_scatter(card, scene):
+    cam, gb, mats, env = scene
+    cfg = shader.RenderConfig(spp=2, chunk=2, max_depth=3, film_jitter=0.5)
+    r0, r1 = shader._trace_chunk_paths(rng.key(2), cfg, cam, gb, mats, env)
+    m = r1.aux.shape[0] * r1.aux.shape[1]
+    wo_d = -shader._normalize9(r0.aux[..., 0:3].float())
+    args = (env.contiguous(), r1.blob.float().reshape(m, 5).contiguous(),
+            torch.rand((m, 3), device=card), r1.nrm.reshape(m, 3),
+            torch.cat([wo_d.bfloat16(), r1.aux], -1).reshape(m, 8),
+            r1.recb.reshape(m, 13))
+    for a, b in zip(sb.shade_bounce_fwd(*args),
+                    sb.shade_bounce_fwd_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    ct = [torch.randn((m, 3), device=card) for _ in range(2)]
+    for a, b in zip(sb.shade_bounce_bwd(*args, *ct),
+                    sb.shade_bounce_bwd_explicit(*args, *ct)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+    idx = r0.idx.reshape(m).int().contiguous()
+    cot = torch.randn((m, 8), device=card)
+    for exact in (True, False):
+        a = rowops.row_scatter_add(cot, idx, gb.dist.numel(), exact=exact)
+        b = rowops.row_scatter_add_plain(cot, idx, gb.dist.numel(),
+                                         exact=exact)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_env_kernels(card, scene):
+    _, gb, _, env = scene
+    smp = em.build_sampler(env)
+    tabs = (smp.m_cdf, smp.m_pdf, smp.c_cdf, smp.c_pdf)
+    u2 = rng.uniform(rng.key(3), (4096, 2), card)
+    for a, b in zip(ek.env_sample_dir(*tabs, u2),
+                    ek.env_sample_dir_plain(*tabs, u2)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    d = -gb.wo.reshape(-1, 3).contiguous()
+    a = ek.env_pdf_dir(smp.m_pdf, smp.c_pdf, d)
+    b = ek.env_pdf_dir_plain(smp.m_pdf, smp.c_pdf, d)
+    assert float(((a - b).abs() <= 1e-5 * b.abs() + 1e-6).float().mean()) \
+        >= 0.999
+    u0, v0, du, dv = em.bilinear_coords(d, 16, 32)
+    u0, v0 = u0.int().contiguous(), v0.int().contiguous()
+    torch.testing.assert_close(ek.env_lookup_bilinear(env, u0, v0, du, dv),
+                               ek.env_lookup_bilinear_plain(env, u0, v0, du,
+                                                            dv))
