@@ -5,14 +5,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card and its power limit, builds the CUDA kernels from
    ``materialist_tpu_torch/csrc`` and prints the build time;
-2. holds every kernel of the main path against its plain PyTorch version
-   on the card, at the main path's shapes (M = 4·512² vertices), and
-   times kernel, plain version and, for the scatter-add, Tensor.index_add_;
-3. drives the main path: ``optimize`` at 512²×64 spp on the in-repo
-   photo_e2e scene (envmap → rm-material → envmap phases), with every
-   kernel's launch counter read around it;
+2. holds every kernel against its plain PyTorch version on the card, at
+   the shapes its path gives it (M = 4·512² vertices), and times kernel,
+   plain version and, where one PyTorch call does the same, that call
+   (``Tensor.index_add_``, ``torch.index_select``);
+3. drives the paths, each with the launch counters set to 0 just before
+   and read just after:
+   - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
+     photo_e2e scene (envmap → rm-material → envmap phases, 7 steps) with
+     wavefront compaction at probed caps; it fails if a cap saturates;
+   - the same without compaction at a smaller depth (3 steps), once
+     before and once after the main path, the phase times and peak memory
+     of the three runs printed side by side;
+   - path 2: a 512² render without NEE (the single march) and its
+     gradients;
+   - path 3: one envmap and one rm step with ``march_impl="mip"`` (the
+     table-lookup kernel);
+   - the standalone flat lookup on the scene's mip and fine tables;
 4. renders and differentiates a 64² scene on the card (kernels) and on
-   the CPU (plain versions) from the same keys and compares them;
+   the CPU (plain versions) from the same keys and compares them, for the
+   default and the "mip" march, and on the card with compaction against
+   without;
 5. runs the inverse CLI in its resume mode on a copy of the scene;
 
 then prints one JSON line with each kernel's numbers and, last, the
@@ -61,7 +74,18 @@ def _flush_log():
         f.write("\n".join(LOG) + "\n")
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+class Timed(float):
+    """Milliseconds per call between two CUDA events; ``device_ms`` is
+    the device time per call that the profiler saw (None: not asked for,
+    or the profiler reported no device time)."""
+    device_ms = None
+
+
+def cuda_ms(fn, iters=20, warmup=3, device=False):
+    """Time ``fn`` over ``iters`` back-to-back calls. The events span the
+    host's launch work too, which dominates kernels of a few tens of
+    microseconds; ``device=True`` also sums the device time of every
+    kernel of the calls as ``torch.profiler`` reports it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -73,7 +97,18 @@ def cuda_ms(fn, iters=20, warmup=3):
         fn()
     e.record()
     torch.cuda.synchronize()
-    return s.elapsed_time(e) / iters
+    out = Timed(s.elapsed_time(e) / iters)
+    if device:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.device_time_total for ev in prof.key_averages()
+                       if ev.device_type.name == "CUDA")
+        out.device_ms = total_us / iters / 1e3 if total_us > 0 else None
+    return out
 
 
 def bound(bytes_moved, flops):
@@ -109,10 +144,20 @@ def main():
     log(f"build_s {time.perf_counter() - t0:.2f}")
 
     kernels = check_kernels(torch, _lib)
-    main_path(torch, _lib, kernels)
+    launches = {"main": main_path(torch, _lib),
+                "nee_false": nee_false_path(torch, _lib),
+                "mip": mip_path(torch, _lib),
+                "standalone": standalone_lookup(torch, _lib)}
     small_agreement(torch)
+    small_agreement(torch, march_impl="mip")
+    compaction_agreement(torch)
     cli_run()
 
+    for k in kernels:
+        k["launches"] = launches[k["path"]][k.pop("counter")]
+        if k["launches"] <= 0:
+            fail(f"kernel {k['name']} was not launched on its path "
+                 f"({k['path']})")
     log("kernels: " + ", ".join(
         f"{k['name']}={'ok' if k['ok'] else 'FAIL'}" for k in kernels))
     for k in kernels:
@@ -204,10 +249,13 @@ def check_kernels(torch, _lib):
     from materialist_tpu_torch.ops import brdf
     from materialist_tpu_torch.ops import envmap as em
     from materialist_tpu_torch.ops.kernels import envkernels as ek
+    from materialist_tpu_torch.ops.kernels import gather
     from materialist_tpu_torch.ops.kernels import march as mk
     from materialist_tpu_torch.ops.kernels import rowops
     from materialist_tpu_torch.ops.kernels import shadebounce as sb
+    from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
     from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
+    from materialist_tpu_torch.render import screenspace as ss
     from materialist_tpu_torch.render import shader
 
     dev = torch.device(DEV)
@@ -215,18 +263,28 @@ def check_kernels(torch, _lib):
     out = []
     rel = "materialist_tpu/ops/pallas/"
 
+    def dev_ms(fn):
+        return cuda_ms(fn, device=True)
+
     def entry(name, src, replaces, ok, err, ms, plain_ms, bytes_moved,
-              flops, library_ms=None):
+              flops, library_ms=None, path="main", counter=None, **more):
+        """``path``: the drive whose launch count the entry reports;
+        ``counter``: its key in ``_lib.LAUNCHES`` (default: its name)."""
         b_ms, b_by = bound(bytes_moved, flops)
         out.append(dict(name=name, route="cuda",
                         source="materialist_tpu_torch/csrc/" + src,
                         replaces=rel + replaces, launches=0,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                        ok=ok))
+                        device_ms=ms.device_ms,
+                        library_device_ms=getattr(library_ms, "device_ms",
+                                                  None),
+                        path=path, counter=counter or name, ok=ok, **more))
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})"
-            + (f", library {library_ms:.4f} ms" if library_ms else ""))
+            + (f", library {library_ms:.4f} ms" if library_ms else "")
+            + f"; device time: kernel {ms.device_ms} ms"
+            + (f", library {library_ms.device_ms} ms" if library_ms else ""))
         if not ok:
             fail(f"kernel {name} disagrees with its plain version")
 
@@ -271,7 +329,7 @@ def check_kernels(torch, _lib):
         f"{float(shad_p.float().mean()):.3f}, t max_abs_err {t_err:.3e} "
         "where both hit")
     ok = all(v >= 0.999 for v in agree.values()) and 0.01 < hit_frac < 0.99
-    ms = cuda_ms(lambda: mk.march_pair(cam_a, tab, origin, d_lobe, d_nee,
+    ms = dev_ms(lambda: mk.march_pair(cam_a, tab, origin, d_lobe, d_nee,
                                        **kw))
     pms = cuda_ms(lambda: mk.march_pair_plain(
         cam_a, tab, origin, d_lobe, d_nee, t_min_frac=2e-3, t_max_frac=3.0,
@@ -300,7 +358,7 @@ def check_kernels(torch, _lib):
         tp.abs().max()), 1e-4)
     ok2, e2 = compare("shade_bounce_fwd rad", rk, rp, 1e-5 * float(
         rp.abs().max()), 1e-4)
-    ms = cuda_ms(lambda: sb.shade_bounce_fwd(*args))
+    ms = dev_ms(lambda: sb.shade_bounce_fwd(*args))
     pms = cuda_ms(lambda: sb.shade_bounce_fwd_plain(*args), iters=5)
     entry("shade_bounce_fwd", "shadebounce.cu", "shadebounce.py:267",
           ok1 and ok2, max(e1, e2), ms, pms, m * (80 + 24) + envc.numel() * 4,
@@ -316,7 +374,7 @@ def check_kernels(torch, _lib):
                        1e-5 * float(b.abs().max()), 1e-4)
         oks.append(o)
         errs.append(e)
-    ms = cuda_ms(lambda: sb.shade_bounce_bwd(*args, ct_t, ct_r))
+    ms = dev_ms(lambda: sb.shade_bounce_bwd(*args, ct_t, ct_r))
     pms = cuda_ms(lambda: sb.shade_bounce_bwd_explicit(*args, ct_t, ct_r),
                   iters=5)
     entry("shade_bounce_bwd", "shadebounce.cu", "shadebounce.py:297",
@@ -347,14 +405,14 @@ def check_kernels(torch, _lib):
         cp = rowops.row_scatter_add_plain(cot, idx, rows, exact=exact)
         scale = float(cp.abs().max())
         o, e = compare(name, ck, cp, 1e-5 * scale, 1e-5)
-        ms = cuda_ms(lambda: rowops.row_scatter_add(cot, idx, rows,
+        ms = dev_ms(lambda: rowops.row_scatter_add(cot, idx, rows,
                                                     exact=exact))
         pms = cuda_ms(lambda: rowops.row_scatter_add_plain(cot, idx, rows,
                                                            exact=exact),
                       iters=5)
         il = idx.long()
         cb = cot if exact else cot.to(torch.bfloat16).float()
-        lib_ms = cuda_ms(lambda: torch.zeros(
+        lib_ms = dev_ms(lambda: torch.zeros(
             (rows, cot.shape[1]), device=dev).index_add_(0, il, cb))
         entry(name, "rowops.cu", "rowops.py:189", o, e, ms, pms,
               cot.numel() * 4 + idx.numel() * 4 + rows * cot.shape[1] * 4,
@@ -369,7 +427,7 @@ def check_kernels(torch, _lib):
     o1, e1 = compare("env_sample_dir wi", wk, wp, 1e-5, 1e-5)
     o2, e2 = compare("env_sample_dir pdf", pk, pp, 1e-6, 1e-5)
     tabs = (sampler.m_cdf, sampler.m_pdf, sampler.c_cdf, sampler.c_pdf)
-    ms = cuda_ms(lambda: ek.env_sample_dir(*tabs, u_s))
+    ms = dev_ms(lambda: ek.env_sample_dir(*tabs, u_s))
     pms = cuda_ms(lambda: ek.env_sample_dir_plain(*tabs, u_s), iters=5)
     entry("env_sample_dir", "envkernels.cu", "envkernels.py:154", o1 and o2,
           max(e1, e2), ms, pms, m * (8 + 16) + 4 * 2 * (16 + 512),
@@ -382,7 +440,7 @@ def check_kernels(torch, _lib):
     # neighbouring texel: torch divides by a scalar on the card as a
     # multiply by its reciprocal, the kernel (like XLA) divides
     o, e = compare("env_pdf_dir", pk, pp, 1e-6, 1e-5, min_frac=0.9999)
-    ms = cuda_ms(lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf, dirs))
+    ms = dev_ms(lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf, dirs))
     pms = cuda_ms(lambda: ek.env_pdf_dir_plain(sampler.m_pdf, sampler.c_pdf,
                                                dirs), iters=5)
     entry("env_pdf_dir", "envkernels.cu", "envkernels.py:317", o, e, ms, pms,
@@ -394,11 +452,116 @@ def check_kernels(torch, _lib):
     lk = ek.env_lookup_bilinear(envc, u0, v0, du, dv)
     lp = ek.env_lookup_bilinear_plain(envc, u0, v0, du, dv)
     o, e = compare("env_lookup_bilinear", lk, lp, 1e-6, 1e-6)
-    ms = cuda_ms(lambda: ek.env_lookup_bilinear(envc, u0, v0, du, dv))
+    ms = dev_ms(lambda: ek.env_lookup_bilinear(envc, u0, v0, du, dv))
     pms = cuda_ms(lambda: ek.env_lookup_bilinear_plain(envc, u0, v0, du, dv),
                   iters=5)
     entry("env_lookup_bilinear", "envkernels.cu", "envkernels.py:229", o, e,
           ms, pms, n * (16 + 12) + envc.numel() * 4, n * 3 * 8)
+
+    # ---- C: row gather at the continuation pack's shape, (m, 6) rows at
+    # the ascending indices of a compaction into cap = 9/16 m, and at
+    # random indices; compact_sel against its plain version
+    cap = 589824
+    alive = torch.rand((m,), generator=g, device=dev) < 0.5
+    sel, count = rowops.compact_sel(alive, cap)
+    sel_p, count_p = rowops.compact_sel_plain(alive, cap)
+    same = bool(torch.equal(sel, sel_p)) and int(count) == int(count_p)
+    asc = bool((sel[1:int(count)] > sel[:int(count) - 1]).all())
+    log(f"  compact_sel: {int(count)} live of {m} into cap {cap}, equal to "
+        f"its plain version bit for bit: {same}, ascending: {asc}; "
+        f"{cuda_ms(lambda: rowops.compact_sel(alive, cap)):.4f} ms, plain "
+        f"{cuda_ms(lambda: rowops.compact_sel_plain(alive, cap), iters=5):.4f}"
+        " ms")
+    if not (same and asc):
+        fail("compact_sel disagrees with its plain version")
+    table = torch.randn((m, 6), generator=g, device=dev)
+    sel_r = torch.randint(0, m, (cap,), generator=g, device=dev,
+                          dtype=torch.int32)
+    oks, errs, times = [], [], {}
+    for tag, ix, exact in (("ascending", sel, True), ("bf16", sel, False),
+                           ("random", sel_r, True)):
+        got = rowops.row_gather(table, ix, exact=exact, coherent=True)
+        o, e = compare(f"row_gather {tag}", got,
+                       rowops.row_gather_plain(table, ix, exact), 0.0, 0.0)
+        oks.append(o)
+        errs.append(e)
+        times[tag] = dev_ms(lambda: rowops.row_gather(table, ix,
+                                                       exact=exact))
+    pms = cuda_ms(lambda: rowops.row_gather_plain(table, sel), iters=5)
+    lib_ms = dev_ms(lambda: torch.index_select(table, 0, sel))
+    lib_r = dev_ms(lambda: torch.index_select(table, 0, sel_r))
+    log(f"  row_gather: ascending {times['ascending']:.4f} ms, bf16 "
+        f"{times['bf16']:.4f} ms, random {times['random']:.4f} ms; "
+        f"index_select ascending {lib_ms:.4f} ms, random {lib_r:.4f} ms")
+    entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
+          times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
+          library_ms=lib_ms, ms_bf16=times["bf16"],
+          ms_random=times["random"], library_ms_random=lib_r,
+          device_ms_random=times["random"].device_ms,
+          library_device_ms_random=lib_r.device_ms)
+
+    # ---- A′: the single march, full and shadow_only, on the seeded map
+    skw = dict(n_steps=cfg.march_steps, fine_steps=cfg.fine_steps,
+               interval_frac=cfg.march_interval_frac)
+    oks, t_errs, times = [], [], {}
+    for shadow_only in (False, True):
+        hk = mk.march_single(cam_a, tab, origin, d_lobe,
+                             shadow_only=shadow_only, **skw)
+        hp = ss.march_mip(cam_a, tab.dist, tab.valid, tab.mip, origin,
+                          d_lobe, mip_factor=tab.mip_f, fine_table=tab.fine,
+                          fine_factor=tab.fine_f, shadow_only=shadow_only,
+                          **skw)
+        agree = {nm: float((a == b).float().mean()) for nm, a, b in (
+            ("hit", hk.hit, hp.hit), ("idx", hk.idx, hp.idx))}
+        both = hk.hit & hp.hit & (hk.idx == hp.idx)
+        t_errs.append(float((hk.t - hp.t).abs()[both].max()))
+        frac = float(hp.hit.float().mean())
+        log(f"  march_single shadow_only={shadow_only}: flags agree {agree} "
+            f"(>= 0.999), hit fraction {frac:.3f}, t max_abs_err "
+            f"{t_errs[-1]:.3e} where both hit")
+        oks.append(all(v >= 0.999 for v in agree.values())
+                   and (shadow_only or 0.01 < frac < 0.99))
+        times[shadow_only] = dev_ms(lambda: mk.march_single(
+            cam_a, tab, origin, d_lobe, shadow_only=shadow_only, **skw))
+    pms = cuda_ms(lambda: ss.march_mip(
+        cam_a, tab.dist, tab.valid, tab.mip, origin, d_lobe,
+        mip_factor=tab.mip_f, fine_table=tab.fine, fine_factor=tab.fine_f,
+        **skw), iters=3, warmup=1)
+    entry("march_single", "march_pair.cu", "march_kernel.py:250", all(oks),
+          max(t_errs), times[False], pms,
+          m * (24 + 9) + 4 * (tab.mip.numel() + tab.fine.numel()),
+          m * (cfg.march_steps + 2 * cfg.fine_steps) * FLOPS_PER_MARCH_STEP,
+          path="nee_false", ms_shadow_only=times[True])
+
+    # ---- F, G: lookups from the 128x128 mip and the 256x256 fine table
+    # of the "mip" march at 512x512 (F: m lookups, one march step of a
+    # chunk; G: 2 m lookups)
+    mip_tab = shader.march_tables(cfg._replace(march_impl="mip"), gbuf_a)
+    for name, fn, plain, n_q, src_line, path in (
+            ("onehot_gather", gather.onehot_gather,
+             gather.onehot_gather_plain, m, "gather.py:72", "mip"),
+            ("vreg_gather", vreg.vreg_gather, vreg.vreg_gather_plain, 2 * m,
+             "vreg_gather.py:65", "standalone")):
+        oks, times, libs, plains = [], {}, {}, {}
+        for tb in (mip_tab.mip, mip_tab.fine):
+            ix = torch.randint(0, tb.numel(), (n_q,), generator=g,
+                               device=dev, dtype=torch.int32)
+            flat = tb.reshape(-1)
+            o, _ = compare(f"{name} {tuple(tb.shape)}", fn(tb, ix),
+                           plain(tb, ix), 0.0, 0.0)
+            oks.append(o)
+            times[tb.shape[0]] = dev_ms(lambda: fn(tb, ix))
+            plains[tb.shape[0]] = cuda_ms(lambda: plain(tb, ix), iters=5)
+            libs[tb.shape[0]] = dev_ms(
+                lambda: torch.index_select(flat, 0, ix))
+        log(f"  {name}: {n_q} lookups, 128x128 table {times[128]:.4f} ms "
+            f"(index_select {libs[128]:.4f}), 256x256 table "
+            f"{times[256]:.4f} ms (index_select {libs[256]:.4f})")
+        entry(name, "gathers.cu", src_line, all(oks), 0.0, times[128],
+              plains[128], n_q * 8 + 128 * 128 * 4, 0, library_ms=libs[128],
+              path=path, ms_256=times[256], library_ms_256=libs[256],
+              device_ms_256=times[256].device_ms,
+              library_device_ms_256=libs[256].device_ms)
     return out
 
 
@@ -416,12 +579,13 @@ def _scene_inputs(d):
     }, exr_io.read(os.path.join(d, "depthPred.exr"))[..., 0]
 
 
-def main_path(torch, _lib, kernels):
+def _optimize_run(torch, _lib, compact, num_epochs, n_rows):
+    """One ``optimize`` run on a fresh copy of the scene; returns (best,
+    launches, wall seconds, peak bytes)."""
     from materialist_tpu_torch.camera import Camera
     from materialist_tpu_torch.opt.loop import InverseOptions, optimize
     from materialist_tpu_torch.render.scene import make_gbuffer
 
-    log("[main path] optimize at 512x512x64spp: env -> rm -> env")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_opt_")
     try:
         d = os.path.join(tmp, "photo_e2e")
@@ -432,8 +596,9 @@ def main_path(torch, _lib, kernels):
         cam = Camera(512, 512)
         gbuf = make_gbuffer(depth, cam, flip_depth=True, device="cuda")
         opts = InverseOptions(opt_src="a", opt_order=("rm", "a"),
-                              max_loops=2, num_epochs=3, frame_every=0,
-                              snapshot_every=0)
+                              max_loops=2, num_epochs=num_epochs,
+                              frame_every=0, snapshot_every=0,
+                              compact=compact)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
@@ -443,65 +608,281 @@ def main_path(torch, _lib, kernels):
         wall = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        log(f"  wall {wall:.2f} s, peak memory {peak / 2**30:.2f} GiB")
-        for name, tot in best["timer"].items():
-            cnt = best["timer_counts"][name]
-            log(f"  {name}: {cnt} x {tot / cnt * 1e3:.1f} ms")
         with open(os.path.join(d, "metrics.jsonl")) as f:
             rows = [json.loads(x) for x in f]
-        losses = [(r["phase"], r["epoch"], r["loss"], r["mse"]) for r in rows]
-        log(f"  losses (phase, epoch, loss, mse): {losses}")
-        phases = {r["phase"] for r in rows}
-        if not all(math.isfinite(r["loss"]) and math.isfinite(r["mse"])
-                   for r in rows):
-            fail("non-finite loss on the main path")
-        if phases != {"env", "mat_mlp[rm]"} or len(rows) != 7:
-            fail(f"unexpected phase schedule {sorted(phases)} ({len(rows)})")
-        img = best["rendered_img"]
-        if tuple(img.shape) != (512, 512, 3) or not bool(
-                torch.isfinite(img).all()):
-            fail("rendered image is not a finite 512x512x3 image")
-        log(f"  launches on the main path: {launches}")
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
-            if k["launches"] <= 0:
-                fail(f"kernel {k['name']} was not launched on the main path")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  wall {wall:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+    losses = [(r["phase"], r["epoch"], r["loss"], r["mse"]) for r in rows]
+    log(f"  losses (phase, epoch, loss, mse): {losses}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["mse"])
+               for r in rows):
+        fail("non-finite loss")
+    phases = {r["phase"] for r in rows}
+    if phases != {"env", "mat_mlp[rm]"} or len(rows) != n_rows:
+        fail(f"unexpected phase schedule {sorted(phases)} ({len(rows)})")
+    img = best["rendered_img"]
+    if tuple(img.shape) != (512, 512, 3) or not bool(
+            torch.isfinite(img).all()):
+        fail("rendered image is not a finite 512x512x3 image")
+    log(f"  launches: {launches}")
+    return best, launches, wall, peak
 
 
-def small_agreement(torch):
-    """64² scene rendered and differentiated on the card and on the CPU
-    from the same keys: the kernels against the plain versions end to
-    end."""
+def main_path(torch, _lib):
+    """Path 1 between two runs of the same without compaction at a
+    smaller depth. The first run of a process also pays its set-up (CUDA
+    context, allocator growth), so the compacted run is held against the
+    uncompacted run after it."""
+    runs = []
+    for label, compact, epochs, rows in (
+            ("[uncompacted, first] compact=False: env -> rm -> env",
+             False, 1, 3),
+            ("[main path] wavefront compaction at probed caps: env -> rm x3 "
+             "-> env x3", True, 3, 7),
+            ("[uncompacted, again] compact=False: env -> rm -> env",
+             False, 1, 3)):
+        log(label + ", optimize at 512x512x64spp")
+        runs.append(_optimize_run(torch, _lib, compact, epochs, rows))
+    (best_0, _, wall_0, peak_0), (best, launches, wall, peak), \
+        (best_u, _, wall_u, peak_u) = runs
+    caps, util = best["compact_caps"], best["cap_util"]
+    log(f"  probed compact_caps {caps}, cap_util per bounce {util}")
+    if len(caps) != 2 or sorted(util) != [1, 2]:
+        fail("the main path did not run compacted")
+    if any(u >= 0.999 for u in util.values()):
+        fail(f"a compaction cap saturated: {util}")
+    if launches["row_gather"] <= 0:
+        fail("row_gather was not launched on the main path")
+    for b in (best_0, best_u):
+        if b["compact_caps"] != () or b["cap_util"]:
+            fail("compact=False still compacted")
+    log("  phase, ms per call: uncompacted first | compacted | "
+        "uncompacted again")
+    for name in ("env_trace", "env_step", "mat_trace[rm]", "mat_mlp[rm]"):
+        ms = [b["timer"][name] / b["timer_counts"][name] * 1e3
+              for b in (best_0, best, best_u)]
+        log(f"  {name}: {ms[0]:.1f} | {ms[1]:.1f} | {ms[2]:.1f}")
+    log(f"  peak memory GiB: {peak_0 / 2**30:.2f} | {peak / 2**30:.2f} | "
+        f"{peak_u / 2**30:.2f}")
+    log(f"  wall s (steps): {wall_0:.2f} (3) | {wall:.2f} (7) | "
+        f"{wall_u:.2f} (3)")
+    return launches
+
+
+def _drive(torch, _lib, fn):
+    """Run ``fn`` with the launch counters set to 0 just before and read
+    just after; returns (result, launches, seconds)."""
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(_lib.LAUNCHES), time.perf_counter() - t0
+
+
+def nee_false_path(torch, _lib):
+    """Path 2: a 512x512 render without NEE (generic shade, single march)
+    and its gradients."""
     from materialist_tpu_torch import rng
-    from materialist_tpu_torch.camera import Camera
-    from materialist_tpu_torch.ops.color import linear_to_srgb
-    from materialist_tpu_torch.render.scene import Materials, make_gbuffer
+    from materialist_tpu_torch.render.scene import Materials
     from materialist_tpu_torch.render.shader import RenderConfig, render
 
-    log("[agreement] 64x64x8spp render + gradients, card vs CPU")
+    log("[path 2] render 512x512x8spp with nee=False, and its gradients")
+    cam, gbuf, mats, env = photo_scene(torch, torch.device(DEV))
+    leaves = [t.clone().requires_grad_() for t in
+              (mats.albedo, mats.roughness, mats.metallic, env)]
+    cfg = RenderConfig(nee=False, spp=8, chunk=4, film_jitter=0.5)
+
+    def run():
+        img = render(rng.key(SEED + 5), cfg, cam, gbuf,
+                     Materials(*leaves[:3], mats.normal), leaves[3])
+        torch.mean(img ** 2).backward()
+        return img.detach()
+
+    img, launches, sec = _drive(torch, _lib, run)
+    log(f"  {sec:.2f} s, image mean {float(img.mean()):.4f}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if tuple(img.shape) != (512, 512, 3) or not bool(
+            torch.isfinite(img).all()):
+        fail("nee=False render is not a finite 512x512x3 image")
+    for nm, leaf in zip(("albedo", "roughness", "metallic", "envmap"),
+                        leaves):
+        if leaf.grad is None or not bool(torch.isfinite(leaf.grad).all()) \
+                or float(leaf.grad.abs().max()) == 0.0:
+            fail(f"nee=False render: no finite non-zero gradient for {nm}")
+    if launches["march_single"] <= 0 or launches["march_pair"] != 0:
+        fail("nee=False render did not go through march_single")
+    return launches
+
+
+def mip_path(torch, _lib):
+    """Path 3: one envmap step and one rm step of make_phase_step with
+    march_impl="mip" (march_mip over the table-lookup kernel)."""
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.io import exr as exr_io
+    from materialist_tpu_torch.ops.color import linear_to_srgb
+    from materialist_tpu_torch.opt import schedules
+    from materialist_tpu_torch.opt.step import make_phase_step
+    from materialist_tpu_torch.render.scene import Materials
+    from materialist_tpu_torch.render.shader import RenderConfig
+
+    log("[path 3] one env step and one rm step at 512x512x8spp, "
+        "march_impl='mip'")
+    dev = torch.device(DEV)
+    cam, gbuf, mats, env = photo_scene(torch, dev)
+    gt = linear_to_srgb(torch.as_tensor(exr_io.read(os.path.join(
+        REPO, "output_imgs", "runs", "photo_e2e", "gt_image.exr"))[..., :3],
+        dtype=torch.float32, device=dev))
+    cfg = RenderConfig(spp=8, chunk=4, film_jitter=0.5, march_impl="mip")
+
+    def loss_of(maps, img, extra):
+        return torch.mean((linear_to_srgb(img) - gt) ** 2), None
+
+    def env_maps(p, extra):
+        return extra, p["envmap"]
+
+    def rm_maps(p, extra):
+        return Materials(mats.albedo, torch.clamp(p["roughness"], 0.07, 1),
+                         torch.clamp(p["metallic"], 0, 1), mats.normal), extra
+
+    cases = (("env", env_maps, {"envmap": env.clone().requires_grad_()},
+              mats),
+             ("rm", rm_maps,
+              {"roughness": mats.roughness.clone().requires_grad_(),
+               "metallic": mats.metallic.clone().requires_grad_()}, env))
+
+    def run():
+        out = []
+        for i, (name, maps_of, params, extra) in enumerate(cases):
+            phase = make_phase_step(cfg, cam, gbuf, maps_of, loss_of)
+            opt = schedules.adam_plain(1e-3)
+            state = opt.init(list(params.values()))
+            recs = phase.trace_all(params, extra, rng.key(SEED + 6 + i))
+            before = {k: v.detach().clone() for k, v in params.items()}
+            loss, _, _ = phase.make_step(opt)(params, state, extra, recs)
+            moved = max(float((params[k].detach() - before[k]).abs().max())
+                        for k in params)
+            out.append((name, float(loss), moved))
+        return out
+
+    res, launches, sec = _drive(torch, _lib, run)
+    log(f"  {sec:.2f} s, (phase, loss, largest update): {res}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name, loss, moved in res:
+        if not math.isfinite(loss) or not 0.0 < moved < 1.0:
+            fail(f"'mip' {name} step: loss {loss}, update {moved}")
+    if launches["onehot_gather"] <= 0 or launches["march_pair"] != 0:
+        fail("the 'mip' steps did not go through onehot_gather")
+    return launches
+
+
+def standalone_lookup(torch, _lib):
+    """Kernel G has no caller in the package: it reads the scene's mip
+    (128x128) and fine (256x256) tables at the cells the first coarse step
+    of a chunk's lobe march visits, and must equal kernel F there."""
+    from materialist_tpu_torch.ops.kernels.gather import onehot_gather
+    from materialist_tpu_torch.ops.kernels.vreg_gather import vreg_gather
+    from materialist_tpu_torch.render import shader
+
+    log("[standalone] vreg_gather on the scene's mip and fine tables")
+    dev = torch.device(DEV)
+    cam, gbuf, _, _ = photo_scene(torch, dev)
+    cfg = shader.RenderConfig(march_impl="mip")
+    tab = shader.march_tables(cfg, gbuf)
+    q = gbuf.position.reshape(-1, 3) + tab.t_lo * gbuf.normal_geo.reshape(
+        -1, 3)
+    uv = cam.project(q.repeat(4, 1))
+    ui = torch.floor(uv[..., 0] + 0.5).to(torch.int32).clamp(0, 511)
+    vi = torch.floor(uv[..., 1] + 0.5).to(torch.int32).clamp(0, 511)
+
+    def run():
+        out = []
+        for tb, f in ((tab.mip, tab.mip_f), (tab.fine, tab.fine_f)):
+            ix = ((vi // f) * tb.shape[1] + ui // f).contiguous()
+            out.append((tb, ix, vreg_gather(tb, ix)))
+        return out
+
+    res, launches, _ = _drive(torch, _lib, run)
+    for tb, ix, got in res:
+        if not bool(torch.equal(got, onehot_gather(tb, ix))) or not bool(
+                torch.equal(got, tb.reshape(-1)[ix.long()])):
+            fail(f"vreg_gather disagrees on the {tuple(tb.shape)} table")
+    log(f"  {res[0][1].numel()} lookups per table, equal to onehot_gather "
+        f"and to indexing; launches {launches['vreg_gather']}")
+    return launches
+
+
+def _small_scene(torch):
     res = 64
     g = torch.Generator().manual_seed(SEED)
     depth = 2.0 + torch.rand((res, res), generator=g)
     depth[16:40, 10:30] -= 0.8
-    cfg = RenderConfig(spp=8, chunk=4, max_depth=4, film_jitter=0.5)
     alb = 0.2 + 0.7 * torch.rand((res, res, 3), generator=g)
     rough = 0.2 + 0.7 * torch.rand((res, res, 1), generator=g)
     met = 0.5 * torch.rand((res, res, 1), generator=g)
     env = (torch.rand((16, 32, 3), generator=g) + 0.1) * 2
-    res_out = {}
-    for dev in ("cuda", "cpu"):
-        cam = Camera(res, res)
-        gb = make_gbuffer(depth, cam, flip_depth=False, device=dev)
-        leaves = [x.to(dev).requires_grad_() for x in (alb, rough, met, env)]
-        mats = Materials(leaves[0], leaves[1], leaves[2], gb.normal_geo)
-        img = render(rng.key(3), cfg, cam, gb, mats, leaves[3])
-        loss = torch.mean(linear_to_srgb(img) ** 2)
-        loss.backward()
-        res_out[dev] = [img.detach().cpu()] + [x.grad.cpu() for x in leaves]
-    names = ("image", "d_albedo", "d_roughness", "d_metallic", "d_envmap")
-    for nm, a, b in zip(names, res_out["cuda"], res_out["cpu"]):
+    return res, depth, (alb, rough, met, env)
+
+
+def _render_and_grads(torch, cfg, dev, res, depth, maps):
+    """[image, d_albedo, d_roughness, d_metallic, d_envmap] on the CPU."""
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.camera import Camera
+    from materialist_tpu_torch.ops.color import linear_to_srgb
+    from materialist_tpu_torch.render.scene import Materials, make_gbuffer
+    from materialist_tpu_torch.render.shader import render
+    cam = Camera(res, res)
+    gb = make_gbuffer(depth, cam, flip_depth=False, device=dev)
+    leaves = [x.to(dev).requires_grad_() for x in maps]
+    mats = Materials(leaves[0], leaves[1], leaves[2], gb.normal_geo)
+    img = render(rng.key(3), cfg, cam, gb, mats, leaves[3])
+    torch.mean(linear_to_srgb(img) ** 2).backward()
+    return [img.detach().cpu()] + [x.grad.cpu() for x in leaves]
+
+
+NAMES = ("image", "d_albedo", "d_roughness", "d_metallic", "d_envmap")
+
+
+def compaction_agreement(torch):
+    """64x64 scene rendered and differentiated on the card from one key
+    with compact_caps=() and (1.0, 1.0): the compacted estimator is the
+    uncompacted one up to the order of the film sums. Limits: image rtol
+    1e-4 / atol 1e-5, albedo and envmap gradients within 2e-3 of their
+    maximum (the JAX package's own, tests/test_compact.py)."""
+    from materialist_tpu_torch.render.shader import RenderConfig
+    log("[agreement] 64x64x8spp on the card, compact_caps=() vs (1.0, 1.0)")
+    res, depth, maps = _small_scene(torch)
+    base = RenderConfig(spp=8, chunk=4, max_depth=4, film_jitter=0.5)
+    ref = _render_and_grads(torch, base, "cuda", res, depth, maps)
+    got = _render_and_grads(torch, base._replace(compact_caps=(1.0, 1.0)),
+                            "cuda", res, depth, maps)
+    for nm, a, b in zip(NAMES, got, ref):
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        log(f"  {nm}: max_abs_err/max {float(err.max()) / scale:.3e}")
+        if nm == "image":
+            ok = bool((err <= 1e-5 + 1e-4 * b.abs()).all())
+        else:
+            ok = float(err.max()) <= 2e-3 * scale
+        if not ok or not bool(torch.isfinite(a).all()):
+            fail(f"compacted and uncompacted renders disagree on {nm}")
+
+
+def small_agreement(torch, march_impl="fused"):
+    """64² scene rendered and differentiated on the card and on the CPU
+    from the same keys: the kernels against the plain versions end to
+    end."""
+    from materialist_tpu_torch.render.shader import RenderConfig
+
+    log(f"[agreement] 64x64x8spp render + gradients, card vs CPU, "
+        f"march_impl={march_impl!r}")
+    res, depth, maps = _small_scene(torch)
+    cfg = RenderConfig(spp=8, chunk=4, max_depth=4, film_jitter=0.5,
+                       march_impl=march_impl)
+    res_out = {dev: _render_and_grads(torch, cfg, dev, res, depth, maps)
+               for dev in ("cuda", "cpu")}
+    for nm, a, b in zip(NAMES, res_out["cuda"], res_out["cpu"]):
         scale = float(b.abs().max())
         err = (a - b).abs()
         mean_rel = float(err.mean() / b.abs().mean().clamp_min(1e-12))

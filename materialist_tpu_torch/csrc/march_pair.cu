@@ -1,9 +1,13 @@
-// Paired screen-space march: the lobe ray (hit, pixel index, t) and the
-// NEE shadow ray (shadowed) of one path vertex against the depth
-// heightfield.
+// Screen-space marches against the depth heightfield. march_pair_launch:
+// the lobe ray (hit, pixel index, t) and the NEE shadow ray (shadowed) of
+// one path vertex in one pass. march_single_launch: one ray per query
+// (hit, pixel index, t), with a shadow_only mode that stops after the
+// coarse scan; it is the march of a render without NEE.
 //
-// Replaces the Pallas kernel of materialist_tpu/ops/pallas/march_kernel.py
-// (march_pair -> _march_pair_tpu, _make_pair_kernel, _march_one_v3).
+// Replaces the Pallas kernels of materialist_tpu/ops/pallas/march_kernel.py
+// (march_pair -> _march_pair_tpu, _make_pair_kernel, _march_one_v3, and
+// march_fused -> _march_fused_tpu, _make_kernel). Both launches share
+// march_one and the table set-up below, so they have the same bound.
 //
 // Bound on the H100: neither bytes (40 B read, 13 B written per ray) nor
 // FP32 rate; the march is a dependent chain of ~(n_steps + 2 fine_steps)
@@ -166,16 +170,37 @@ __global__ void march_pair_kernel(
   }
 }
 
-}  // namespace
+__global__ void march_single_kernel(
+    const float* __restrict__ origin, const float* __restrict__ dir,
+    const float* __restrict__ mip_g, const float* __restrict__ fine_g,
+    const float* __restrict__ t_lo_p, uint8_t* __restrict__ hit,
+    int* __restrict__ idx, float* __restrict__ t, int m, Geo g, int n_steps,
+    int fine_steps, float ratio, int shadow_only) {
+  extern __shared__ float sm[];
+  float* mip = sm;
+  float* fine = sm + g.mh * g.mw;
+  for (int i = threadIdx.x; i < g.mh * g.mw; i += blockDim.x) mip[i] = mip_g[i];
+  for (int i = threadIdx.x; i < g.fh * g.fw; i += blockDim.x)
+    fine[i] = fine_g[i];
+  __syncthreads();
+  const float t_lo = *t_lo_p;
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < m;
+       q += gridDim.x * blockDim.x) {
+    bool h;
+    int ix;
+    float tt;
+    march_one(g, mip, fine, t_lo, origin[3 * q], origin[3 * q + 1],
+              origin[3 * q + 2], dir[3 * q], dir[3 * q + 1], dir[3 * q + 2],
+              n_steps, fine_steps, ratio, shadow_only != 0, h, ix, tt);
+    hit[q] = h ? 1 : 0;
+    idx[q] = ix;
+    t[q] = tt;
+  }
+}
 
-extern "C" int march_pair_launch(
-    const float* origin, const float* d_lobe, const float* d_nee,
-    const float* mip, const float* fine, const float* t_lo, uint8_t* hit,
-    int* idx, float* t, uint8_t* shad, int m, int h, int w, int mip_f,
-    int mh, int mw, int fine_f, int fh, int fw, float focal, float cx,
-    float cy, float bias_lo, float bias_hi, float interval_frac, int n_steps,
-    int fine_steps, int s_steps, int s_fine_steps, float ratio, float s_ratio,
-    int s_shadow_only, cudaStream_t stream) {
+Geo make_geo(int h, int w, int mip_f, int mh, int mw, int fine_f, int fh,
+             int fw, float focal, float cx, float cy, float bias_lo,
+             float bias_hi, float interval_frac) {
   // bias_lo/bias_hi are 1 -/+ bias_frac rounded once from double, as the
   // JAX kernel's weakly typed constants are
   Geo g;
@@ -193,6 +218,39 @@ extern "C" int march_pair_launch(
   g.bias_lo = bias_lo;
   g.bias_hi = bias_hi;
   g.interval_frac = interval_frac;
+  return g;
+}
+
+}  // namespace
+
+extern "C" int march_single_launch(
+    const float* origin, const float* dir, const float* mip,
+    const float* fine, const float* t_lo, uint8_t* hit, int* idx, float* t,
+    int m, int h, int w, int mip_f, int mh, int mw, int fine_f, int fh,
+    int fw, float focal, float cx, float cy, float bias_lo, float bias_hi,
+    float interval_frac, int n_steps, int fine_steps, float ratio,
+    int shadow_only, cudaStream_t stream) {
+  const Geo g = make_geo(h, w, mip_f, mh, mw, fine_f, fh, fw, focal, cx, cy,
+                         bias_lo, bias_hi, interval_frac);
+  const size_t smem = sizeof(float) * (mh * mw + fh * fw);
+  int grid = (m + kThreads - 1) / kThreads;
+  grid = grid < 1 ? 1 : grid;
+  march_single_kernel<<<grid, kThreads, smem, stream>>>(
+      origin, dir, mip, fine, t_lo, hit, idx, t, m, g, n_steps, fine_steps,
+      ratio, shadow_only);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int march_pair_launch(
+    const float* origin, const float* d_lobe, const float* d_nee,
+    const float* mip, const float* fine, const float* t_lo, uint8_t* hit,
+    int* idx, float* t, uint8_t* shad, int m, int h, int w, int mip_f,
+    int mh, int mw, int fine_f, int fh, int fw, float focal, float cx,
+    float cy, float bias_lo, float bias_hi, float interval_frac, int n_steps,
+    int fine_steps, int s_steps, int s_fine_steps, float ratio, float s_ratio,
+    int s_shadow_only, cudaStream_t stream) {
+  const Geo g = make_geo(h, w, mip_f, mh, mw, fine_f, fh, fw, focal, cx, cy,
+                         bias_lo, bias_hi, interval_frac);
   const size_t smem = sizeof(float) * (mh * mw + fh * fw);
   int grid = (m + kThreads - 1) / kThreads;
   grid = grid < 1 ? 1 : grid;

@@ -25,16 +25,18 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
 LIB_PATH = os.path.join(BUILD, "libmaterialist_kernels.so")
-SOURCES = ("envkernels.cu", "march_pair.cu", "rowops.cu", "shadebounce.cu")
+SOURCES = ("envkernels.cu", "gathers.cu", "march_pair.cu", "rowops.cu",
+           "shadebounce.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds where its
 # plain version does (the march's hit decisions follow the float order)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {name: 0 for name in (
-    "march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
-    "row_scatter_add", "row_scatter_add_bf16", "env_sample_dir",
-    "env_pdf_dir", "env_lookup_bilinear")}
+    "march_pair", "march_single", "shade_bounce_fwd", "shade_bounce_bwd",
+    "row_gather", "row_scatter_add", "row_scatter_add_bf16",
+    "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear", "onehot_gather",
+    "vreg_gather")}
 
 _lock = threading.Lock()
 _lib = None
@@ -104,12 +106,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "march_pair_launch": ([_P] * 10 + [_I] * 9 + [_F] * 6 + [_I] * 4
                           + [_F] * 2 + [_I] + [_P]),
+    "march_single_launch": ([_P] * 8 + [_I] * 9 + [_F] * 6 + [_I] * 2 + [_F]
+                            + [_I] + [_P]),
     "shade_bounce_fwd_launch": [_P] * 8 + [_I] * 3 + [_P],
     "shade_bounce_bwd_launch": [_P] * 11 + [_I] * 3 + [_P],
+    "row_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     "row_scatter_add_launch": [_P] * 3 + [_I] * 4 + [_P],
     "env_sample_dir_launch": [_P] * 7 + [_I] * 3 + [_P],
     "env_pdf_dir_launch": [_P] * 4 + [_I] * 3 + [_P],
     "env_lookup_bilinear_launch": [_P] * 6 + [_I] * 3 + [_P],
+    "onehot_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "vreg_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 

@@ -1,10 +1,12 @@
-"""Paired lobe + NEE shadow march of a path vertex: kernel A of
-``csrc/march_pair.cu`` (replaces
-``materialist_tpu/ops/pallas/march_kernel.py::march_pair``).
+"""Screen-space marches of ``csrc/march_pair.cu``: kernel A,
+``march_pair`` (lobe + NEE shadow march of a path vertex, replaces
+``materialist_tpu/ops/pallas/march_kernel.py::march_pair``), and kernel
+A′, ``march_single`` (one ray, with a ``shadow_only`` mode, replaces
+``march_kernel.py::march_fused``).
 
-The plain version is two ``render/screenspace.py::march_mip`` calls, as
-the JAX package's off-TPU path is. The tables and ``t_lo`` are computed
-here in torch; the kernel marches one ray per thread.
+The plain version of each march is ``render/screenspace.py::march_mip``,
+as the JAX package's off-TPU path is. The tables and ``t_lo`` are
+computed here in torch; the kernels march one ray per thread.
 """
 
 from __future__ import annotations
@@ -45,10 +47,13 @@ class MarchTables(NamedTuple):
     fine_f: int
 
 
-def march_tables(dist_map, valid_map, t_min_frac: float = 2e-3):
+def march_tables(dist_map, valid_map, t_min_frac: float = 2e-3,
+                 mip_f: int = None, fine_f: int = None):
+    """Tables with the kernels' own factors, or with the given ones (the
+    "mip" march implementation takes them from the render config)."""
     h, w = dist_map.shape
-    mip_f = _mip_factor(h, w)
-    fine_f = _fine_factor(h, w)
+    mip_f = _mip_factor(h, w) if mip_f is None else mip_f
+    fine_f = _fine_factor(h, w) if fine_f is None else fine_f
     scale = torch.clamp_min(
         torch.max(torch.where(valid_map, dist_map, 0.0)), 1e-6)
     return MarchTables(dist_map, valid_map,
@@ -80,22 +85,58 @@ def march_pair_plain(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
     return hit, shad
 
 
+def _check_tables(tab: MarchTables, dev):
+    mh, mw = tab.mip.shape
+    fh, fw = tab.fine.shape
+    for name, t, shp in (("mip", tab.mip, (mh, mw)),
+                         ("fine", tab.fine, (fh, fw)),
+                         ("t_lo", tab.t_lo, (1,))):
+        _lib.expect(t, name, torch.float32, shp, dev)
+    if mh * mw > 1024 or fh * fw > 4096:
+        raise ValueError("march tables exceed the kernel's shared memory")
+    return mh, mw, fh, fw
+
+
 def march_single(cam: Camera, tab: MarchTables, origin, direction,
                  n_steps: int = 24, fine_steps: int = 6,
                  t_min_frac: float = 2e-3, t_max_frac: float = 3.0,
-                 bias_frac: float = 4e-3, interval_frac: float = 2.0):
-    """One lobe march (the ``nee=False`` path). Its kernel, A′
-    (``march_kernel.py::march_fused``), is not ported yet (ROADMAP
-    queue 2), so CUDA tensors raise; CPU tensors take ``march_mip``."""
-    if origin.device.type != "cpu":
-        raise NotImplementedError(
-            "kernel A' (march_fused) is not ported yet: ROADMAP queue 2")
-    return ss.march_mip(cam, tab.dist, tab.valid, tab.mip, origin, direction,
-                        n_steps=n_steps, fine_steps=fine_steps,
-                        t_min_frac=t_min_frac, t_max_frac=t_max_frac,
-                        bias_frac=bias_frac, interval_frac=interval_frac,
-                        mip_factor=tab.mip_f, fine_table=tab.fine,
-                        fine_factor=tab.fine_f)
+                 bias_frac: float = 4e-3, interval_frac: float = 2.0,
+                 shadow_only: bool = False):
+    """Kernel A′: one march of the rays origin (..., 3) along direction.
+    ``shadow_only`` stops after the coarse scan (hit = a candidate
+    interval was found, idx = 0). Returns a Hit."""
+    if origin.device.type == "cpu":
+        return ss.march_mip(cam, tab.dist, tab.valid, tab.mip, origin,
+                            direction, n_steps=n_steps,
+                            fine_steps=fine_steps, t_min_frac=t_min_frac,
+                            t_max_frac=t_max_frac, bias_frac=bias_frac,
+                            interval_frac=interval_frac,
+                            mip_factor=tab.mip_f, shadow_only=shadow_only,
+                            fine_table=tab.fine, fine_factor=tab.fine_f)
+    dev = origin.device
+    shape = origin.shape[:-1]
+    o = origin.reshape(-1, 3).contiguous()
+    d = direction.reshape(-1, 3).contiguous()
+    m = o.shape[0]
+    _lib.expect(o, "origin", torch.float32, (m, 3), dev)
+    _lib.expect(d, "direction", torch.float32, (m, 3), dev)
+    mh, mw, fh, fw = _check_tables(tab, dev)
+    hit = torch.empty((m,), dtype=torch.bool, device=dev)
+    idx = torch.empty((m,), dtype=torch.int32, device=dev)
+    t = torch.empty((m,), dtype=torch.float32, device=dev)
+    ratio = (t_max_frac / t_min_frac) ** (1.0 / max(n_steps - 1, 1))
+    if m:
+        _lib.check(_lib.lib().march_single_launch(
+            o.data_ptr(), d.data_ptr(), tab.mip.data_ptr(),
+            tab.fine.data_ptr(), tab.t_lo.data_ptr(), hit.data_ptr(),
+            idx.data_ptr(), t.data_ptr(), m, cam.height, cam.width,
+            tab.mip_f, mh, mw, tab.fine_f, fh, fw, cam.focal, cam.cx, cam.cy,
+            1.0 - bias_frac, 1.0 + bias_frac, interval_frac, n_steps,
+            fine_steps, ratio, int(shadow_only), _lib.stream_ptr(o)),
+            "march_single")
+        _lib.LAUNCHES["march_single"] += 1
+    hit = hit.reshape(shape)
+    return ss.Hit(hit, idx.reshape(shape), t.reshape(shape), ~hit)
 
 
 def march_pair(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
@@ -117,15 +158,9 @@ def march_pair(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
     dn = d_nee.reshape(-1, 3).contiguous()
     m = o.shape[0]
     h, w = cam.height, cam.width
-    mh, mw = tab.mip.shape
-    fh, fw = tab.fine.shape
-    for name, t, shp in (("origin", o, (m, 3)), ("d_lobe", dl, (m, 3)),
-                         ("d_nee", dn, (m, 3)), ("mip", tab.mip, (mh, mw)),
-                         ("fine", tab.fine, (fh, fw)),
-                         ("t_lo", tab.t_lo, (1,))):
-        _lib.expect(t, name, torch.float32, shp, dev)
-    if mh * mw > 1024 or fh * fw > 4096:
-        raise ValueError("march tables exceed the kernel's shared memory")
+    for name, t in (("origin", o), ("d_lobe", dl), ("d_nee", dn)):
+        _lib.expect(t, name, torch.float32, (m, 3), dev)
+    mh, mw, fh, fw = _check_tables(tab, dev)
     hit = torch.empty((m,), dtype=torch.bool, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     t = torch.empty((m,), dtype=torch.float32, device=dev)

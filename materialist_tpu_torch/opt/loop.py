@@ -9,8 +9,9 @@ phase is early-stopped, and SaveBest persists the argmin-MSE state to
 
 Differences from the JAX package: the networks are initialised from
 torch generators seeded 1 (envmap) and 2 (material) instead of Flax's
-init keys; wavefront compaction is not ported, so ``compact`` has no
-effect (as on the JAX package's CPU path).
+init keys. With ``compact`` (the default) ``optimize`` probes the scene's
+compaction caps once at start-up on a CUDA device; on the CPU it compacts
+only with caps passed in, as the JAX package does off its accelerator.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ from materialist_tpu_torch.opt import schedules
 from materialist_tpu_torch.opt.callbacks import EarlyStopping, SaveBest
 from materialist_tpu_torch.opt.step import make_phase_step
 from materialist_tpu_torch.render.scene import GBuffer, Materials
-from materialist_tpu_torch.render.shader import RenderConfig
+from materialist_tpu_torch.render.shader import (RenderConfig,
+                                                 compact_cap_utilization,
+                                                 probe_compact_caps)
 from materialist_tpu_torch.utils.profiling import JsonlLogger, PhaseTimer
 
 
@@ -122,9 +125,12 @@ def _np(x):
 
 
 def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
-             opts: InverseOptions, device=None) -> dict:
+             opts: InverseOptions, device=None, compact_caps=None) -> dict:
     """Run the alternating optimization on ``device`` (default: the card;
     raises without one unless ``device="cpu"``); returns the best state.
+    ``compact_caps`` overrides the probed wavefront-compaction caps (and
+    is the only way to compact on the CPU); ``opts.compact=False``
+    switches compaction off.
 
     ``mat``: albedo (H,W,3), roughness (H,W,1), metallic (H,W,1), normal
     (H,W,3), gt_image (H,W,3 linear), optional mask (H,W) bool, optional
@@ -146,6 +152,37 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
     cfg = _render_cfg(opts)
     env_h, env_w = opts.env_hw
     key = rng.key(opts.seed)
+
+    if opts.compact and cfg.max_depth > 2:
+        if compact_caps is None and dev.type == "cuda":
+            compact_caps = probe_compact_caps(
+                rng.key(opts.seed + 99), cfg, cam, gbuf,
+                _mats_from_dict(mat),
+                torch.ones(tuple(opts.env_hw) + (3,), device=dev))
+        if compact_caps:
+            cfg = cfg._replace(compact_caps=tuple(compact_caps))
+            print("[optimize] wavefront compaction caps: "
+                  f"{cfg.compact_caps}", flush=True)
+
+    cap_util = {}   # bounce -> largest live count / cap so far (device)
+
+    def track_caps(records):
+        for b, f in compact_cap_utilization(records[0]):
+            cap_util[b] = torch.maximum(cap_util[b], f) if b in cap_util \
+                else f
+
+    def cap_note():
+        """Live count against the compaction caps, read at print cadence
+        only; warns when a cap saturates (live rays are being dropped)."""
+        parts = []
+        for b, f in sorted(cap_util.items()):
+            fv = float(f)
+            parts.append(f"b{b}={fv:.2f}")
+            if fv >= 0.999:
+                print(f"[optimize] WARNING: compaction cap saturated at "
+                      f"bounce {b} (util {fv:.3f}): live rays are being "
+                      "dropped; re-probe compact_caps", flush=True)
+        return " cap_util[" + ",".join(parts) + "]" if parts else ""
 
     gt_image = mat["gt_image"].to(torch.float32)
     gt_srgb = linear_to_srgb(gt_image)
@@ -383,6 +420,7 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
                 with timer.phase("env_trace"):
                     records = env_phase.trace_all(envmap_net, mats_now,
                                                   k_tr)
+                    track_caps(records)
             with timer.phase("env_step"):
                 loss, aux, _ = env_step(envmap_net, opt_state, mats_now,
                                         records)
@@ -396,7 +434,7 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
             maybe_snapshot(epoch)
             if epoch % 50 == 0 or early.early_stop:
                 print(f"[env {loop_num}] epoch {epoch} loss {float(loss):.4f}"
-                      f" mse {mse_val:.4f}", flush=True)
+                      f" mse {mse_val:.4f}" + cap_note(), flush=True)
             if opts.frame_every and (epoch % opts.frame_every == 0
                                      or early.early_stop):
                 last_env_frame = save_env_frame(
@@ -491,6 +529,7 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
                         key, loop_num * 1000000 + 500000 + epoch)
                     with timer.phase(f"mat_trace[{part}]"):
                         records = phase.trace_all(params, extra, k_tr)
+                        track_caps(records)
                 with timer.phase(label):
                     loss, auxes, params_pre = step(params, opt_state, extra,
                                                    records)
@@ -507,7 +546,8 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
                 maybe_snapshot(epoch)
                 if epoch % 50 == 0 or early.early_stop:
                     print(f"[{tag}] epoch {epoch} loss {float(loss):.4f} "
-                          f"mse {mse_val:.4f}", flush=True)
+                          f"mse {mse_val:.4f}" + cap_note(),
+                          flush=True)
                 if opts.frame_every and (epoch % opts.frame_every == 0
                                          or early.early_stop):
                     save_mat_frame(mats_cur, _np(pred), loop_num, part,
@@ -538,4 +578,6 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
     best = saver.get_best()
     best["timer"] = dict(timer.totals)
     best["timer_counts"] = dict(timer.counts)
+    best["compact_caps"] = cfg.compact_caps
+    best["cap_util"] = {b: float(f) for b, f in sorted(cap_util.items())}
     return best

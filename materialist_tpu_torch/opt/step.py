@@ -61,10 +61,17 @@ def make_phase_step(cfg_full: RenderConfig, cam, gbuf: GBuffer,
     gbuf = GBuffer(*[t.to(dev) for t in gbuf])
     h, w = gbuf.dist.shape
     if plan is None:
+        caps = cfg_full.compact_caps
+        bounces = max(cfg_full.max_depth - 1, 1)
+        # bounce 0 is uncompacted (fraction 1); bounces beyond len(caps)
+        # reuse the last cap, as the shader does
+        vert_frac = ((1.0 + sum(caps[min(i, len(caps) - 1)]
+                                for i in range(bounces - 1))) / bounces
+                     if caps else 1.0)
         plan = plan_step(max(h, w), cfg_full.spp,
                          hbm_bytes=device_bytes(dev),
-                         max_chunk=cfg_full.chunk,
-                         bounces=max(cfg_full.max_depth - 1, 1))
+                         max_chunk=cfg_full.chunk, bounces=bounces,
+                         vert_frac=vert_frac)
     n_groups = max(min(plan.groups, cfg_full.spp), 1)
     spp_group = max(cfg_full.spp // n_groups, 1)
     cfg = cfg_full._replace(

@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from materialist_tpu_torch.ops import brdf as B
-from materialist_tpu_torch.ops.kernels.rowops import row_scatter_add
+from materialist_tpu_torch.ops.kernels.rowops import (row_gather_diff,
+                                                      row_scatter_add)
 from materialist_tpu_torch.render.scene import Materials
 
 
@@ -73,8 +74,8 @@ def disney(mats: Materials) -> BSDF:
         return _ReuseGather.apply(table, idx, primal)
 
     def gather_fn(idx):
-        # differentiable re-fetch: plain-indexing forward, C′ backward
-        return reuse(idx, table.detach()[idx.long()])
+        # differentiable re-fetch: kernel C forward, C′ backward
+        return row_gather_diff(table, idx)
 
     def eval_fn(blob, idx, wi, wo, normal):
         a, r, m, _ = _unpack(blob)

@@ -1,8 +1,10 @@
 """Screen-space marching against the depth heightfield (counterpart of
 ``materialist_tpu/render/screenspace.py``): the min-depth mip, the
 mean-depth fine table and the two-level ``march_mip``, which is the plain
-version of the march kernel (``ops/kernels/march.py``). Table reads are
-plain indexing. Everything here runs without gradients.
+version of the march kernels (``ops/kernels/march.py``). Its table reads
+go through ``lookup``: plain indexing by default, the table-lookup kernel
+(``ops/kernels/gather.py``) for the "mip" march implementation.
+Everything here runs without gradients.
 """
 
 from __future__ import annotations
@@ -63,10 +65,14 @@ def march_mip(cam: Camera, dist_map, valid_map, mip, origin, direction,
               t_min_frac: float = 2e-3, t_max_frac: float = 3.0,
               bias_frac: float = 4e-3, interval_frac: float = 2.0,
               mip_factor: int = 4, shadow_only: bool = False,
-              fine_table=None, fine_factor: int = 1) -> Hit:
+              fine_table=None, fine_factor: int = 1, lookup=None) -> Hit:
     """Two-level march: exponential coarse scan over the min-depth mip
     (start cell excluded, first two rising-edge intervals kept), fine
-    refinement against the mean-depth table, and the thickness test."""
+    refinement against the mean-depth table, and the thickness test.
+    ``lookup(table (H, W), flat int32 idx)`` reads both tables."""
+    if lookup is None:
+        def lookup(table, idx):
+            return table.reshape(-1)[idx.long()]
     scene_scale = torch.clamp_min(
         torch.max(torch.where(valid_map, dist_map, 0.0)), 1e-6)
     t_lo = t_min_frac * scene_scale
@@ -80,8 +86,6 @@ def march_mip(cam: Camera, dist_map, valid_map, mip, origin, direction,
     if fine_table is None:
         fine_table = build_fine_table(dist_map, valid_map, fine_factor)
     fh, fw = fine_table.shape
-    mip_flat = mip.reshape(-1)
-    fine_flat = fine_table.reshape(-1)
 
     def project(q):
         uv = cam.project(q)
@@ -107,7 +111,7 @@ def march_mip(cam: Camera, dist_map, valid_map, mip, origin, direction,
         ui, vi, inside = project(q)
         mi = torch.clamp(_fdiv(vi, mip_factor), 0, mh - 1) * mw \
             + torch.clamp(_fdiv(ui, mip_factor), 0, mw - 1)
-        min_d = mip_flat[mi.long()]
+        min_d = lookup(mip, mi)
         cand = inside & (ray_d > min_d * (1.0 - bias_frac)) \
             & (ray_d > 0.0) & (mi != start_cell) & ~exited
         rising = cand & ~prev_cand
@@ -143,7 +147,7 @@ def march_mip(cam: Camera, dist_map, valid_map, mip, origin, direction,
             idx = torch.clamp(vi, 0, h - 1) * w + torch.clamp(ui, 0, w - 1)
             fidx = torch.clamp(_fdiv(vi, fine_factor), 0, fh - 1) * fw \
                 + torch.clamp(_fdiv(ui, fine_factor), 0, fw - 1)
-            surf_d = fine_flat[fidx.long()]
+            surf_d = lookup(fine_table, fidx)
             ok = inside & (surf_d < 1.0e29)
             excess = ray_d - surf_d - bias_frac * surf_d
             crossing = ok & (excess > 0.0) & gate & ~hit

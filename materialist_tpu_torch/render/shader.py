@@ -5,17 +5,20 @@ Path-replay structure: ``trace_step_records`` resolves every sampling
 decision and all visibility (the marches) without gradients into compact
 per-chunk records; ``shade_from_records`` replays them and evaluates the
 differentiable radiance. Primary visibility is the pixel grid, secondary
-visibility is the screen-space march (kernel A), the per-vertex shade of
-the production configuration is the fused bounce (kernels B/B′), NEE
-samples and pdfs come from kernels D/D′, the sky from kernel E.
+visibility is the screen-space march (kernels A/A′, or ``march_mip`` over
+the table-lookup kernel F for ``march_impl="mip"``), the per-vertex shade
+of the production configuration is the fused bounce (kernels B/B′), NEE
+samples and pdfs come from kernels D/D′, the sky from kernel E. With
+``compact_caps`` the dead rays are dropped between bounces and the live
+ones move through the row gather and scatter-add (kernels C/C′).
 
 Sampling decisions, pdfs, MIS weights and geometry are detached; the
 gradient reaches the material maps and the envmap only. The estimator's
 draws come from the threefry keys of ``materialist_tpu_torch.rng`` and
 are the JAX package's draws for the same key.
 
-Not ported yet: wavefront compaction (``compact_caps``), the "mip" and
-"exact" march implementations, and px-sharded film slices.
+Not ported yet: the "exact" march implementation and px-sharded film
+slices.
 """
 
 from __future__ import annotations
@@ -28,9 +31,13 @@ from materialist_tpu_torch import rng
 from materialist_tpu_torch.camera import Camera, norm
 from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.ops.kernels import march as mk
-from materialist_tpu_torch.ops.kernels.rowops import row_gather
+from materialist_tpu_torch.ops.kernels.gather import onehot_gather
+from materialist_tpu_torch.ops.kernels.rowops import (
+    _f32_exact_join, _f32_exact_split, compact_sel, gather_coherent_diff,
+    gather_rows_coherent, row_gather, scatter_add_coherent_diff)
 from materialist_tpu_torch.ops.kernels.shadebounce import shade_bounce_fused
 from materialist_tpu_torch.render import bsdf as bsdf_mod
+from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render.scene import GBuffer, Materials
 
 
@@ -56,13 +63,19 @@ class RenderConfig(NamedTuple):
     lds: bool = True
     march_bg_fill: int = 0
     march_interval_frac: float = 0.05
+    # wavefront compaction: per-secondary-bounce ray capacities as
+    # fractions of the chunk's ray count, e.g. (0.5, 0.25) for max_depth
+    # 4; live rays beyond a cap count as dead (size the caps with
+    # probe_compact_caps). Empty: no compaction.
     compact_caps: tuple = ()
 
 
 class BounceRecord(NamedTuple):
     """Trace record of one bounce. Fused-shade records carry ``nrm`` (f16
     shading normal), ``aux`` (bf16 win|gates) and ``recb`` (bf16
-    pdfs|wi_e|uv taps); generic records carry the individual fields."""
+    pdfs|wi_e|uv taps); generic records carry the individual fields.
+    ``extras`` = (sel, count, vertex idx, film position) says how a
+    compacted bounce's arrays were formed from the previous bounce's."""
     shadowed: torch.Tensor
     hit: torch.Tensor
     idx: torch.Tensor
@@ -76,17 +89,14 @@ class BounceRecord(NamedTuple):
     uvf: torch.Tensor = None
     aux: torch.Tensor = None
     recb: torch.Tensor = None
+    extras: tuple = None
 
 
 def _check_cfg(cfg: RenderConfig) -> None:
-    if cfg.compact_caps:
+    if cfg.march_impl not in ("fused", "mip"):
         raise NotImplementedError(
-            "wavefront compaction (compact_caps) is not ported yet: "
-            "ROADMAP queue 2, kernel C with compaction")
-    if cfg.march_impl != "fused":
-        raise NotImplementedError(
-            f"march_impl={cfg.march_impl!r} is not ported yet: ROADMAP "
-            "queue 2, kernel F (only 'fused' is)")
+            f"march_impl={cfg.march_impl!r} is not ported yet (only "
+            "'fused' and 'mip' are): ROADMAP queue 1")
 
 
 def _normalize9(v):
@@ -224,8 +234,51 @@ def _fused_shade_eligible(cfg: RenderConfig, bsdf, envmap) -> bool:
 
 
 def march_tables(cfg: RenderConfig, gbuf: GBuffer):
-    """March tables of the scene geometry (shared by every chunk)."""
+    """March tables of the scene geometry (shared by every chunk): the
+    march kernels' own factors for "fused", the config's for "mip"."""
+    _check_cfg(cfg)
+    if cfg.march_impl == "mip":
+        return mk.march_tables(*_march_geometry(cfg, gbuf),
+                               mip_f=cfg.mip_factor, fine_f=cfg.fine_factor)
     return mk.march_tables(*_march_geometry(cfg, gbuf))
+
+
+def _make_march_fns(cfg: RenderConfig, cam: Camera, tables):
+    """(do_march, do_pair) of the configured implementation: the lobe
+    march alone, and the lobe march with the NEE shadow march."""
+    kw = dict(t_min_frac=2e-3, t_max_frac=3.0, bias_frac=4e-3,
+              interval_frac=cfg.march_interval_frac)
+    if cfg.march_impl == "fused":
+        def do_march(pos, wi):
+            return mk.march_single(cam, tables, pos, wi,
+                                   n_steps=cfg.march_steps,
+                                   fine_steps=cfg.fine_steps, **kw)
+
+        def do_pair(pos, wi, wi_e):
+            return mk.march_pair(cam, tables, pos, wi, wi_e,
+                                 n_steps=cfg.march_steps,
+                                 fine_steps=cfg.fine_steps,
+                                 shadow_steps=cfg.shadow_steps,
+                                 shadow_fine_steps=cfg.shadow_fine_steps,
+                                 **kw)
+        return do_march, do_pair
+
+    def mip_march(pos, d, n_steps, fine_steps, shadow_only=False):
+        return ss.march_mip(cam, tables.dist, tables.valid, tables.mip,
+                            pos, d, n_steps=n_steps, fine_steps=fine_steps,
+                            mip_factor=tables.mip_f, shadow_only=shadow_only,
+                            fine_table=tables.fine,
+                            fine_factor=tables.fine_f, lookup=onehot_gather,
+                            **kw)
+
+    def do_march(pos, wi):
+        return mip_march(pos, wi, cfg.march_steps, cfg.fine_steps)
+
+    def do_pair(pos, wi, wi_e):
+        return do_march(pos, wi), mip_march(
+            pos, wi_e, cfg.shadow_steps, cfg.shadow_fine_steps,
+            cfg.shadow_fine_steps == 0).hit
+    return do_march, do_pair
 
 
 @torch.no_grad()
@@ -257,15 +310,31 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     idx = torch.arange(n, dtype=torch.int32, device=dev).expand(s, n)
     wo = gbuf.wo.reshape(n, 3).expand(s, n, 3)
     fused = _fused_shade_eligible(cfg, bsdf, envmap)
-    base_alive = gbuf.valid.reshape(n).expand(s, n) if fused else None
     eh, ew = envmap.shape[0], envmap.shape[1]
-    march_kw = dict(t_min_frac=2e-3, t_max_frac=3.0, bias_frac=4e-3,
-                    interval_frac=cfg.march_interval_frac)
+    do_march, do_pair = _make_march_fns(cfg, cam, tables)
+
+    # wavefront compaction state: base_alive gates the live rays of the
+    # current bounce's arrays; film_idx maps each row of a compacted array
+    # back to its (sample, pixel) slot of the chunk grid; pending holds
+    # the extras of the next bounce's record
+    m0 = s * n
+    do_compact = bool(cfg.compact_caps)
+    base_alive = (gbuf.valid.reshape(n).expand(s, n)
+                  if do_compact or fused else None)
+    film_idx = None
+    pending = None
+
+    def caps_abs(b_next):
+        frac = cfg.compact_caps[min(b_next - 1, len(cfg.compact_caps) - 1)]
+        cap = int(-(-(frac * m0) // 1024) * 1024)
+        return max(min(cap, m0), 1024)
 
     records = []
     for b in range(cfg.max_depth - 1):
         k_lobe, k_uv, k_nee = rng.split(rng.fold_in(key, b), 3)
         rec_blob = rec_nrm = None
+        extras = pending
+        pending = None
         if b == 0 and cfg.film_jitter > 0.0:
             nrm_geo, pos, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s)
             if base_alive is not None:
@@ -291,21 +360,24 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
 
         u1 = _stream_uniform(cfg, k_lobe, s, n, 1, dev)
         u2 = _stream_uniform(cfg, k_uv, s, n, 2, dev)
+        u_nee = _stream_uniform(cfg, k_nee, s, n, 2, dev) if cfg.nee else None
+        if film_idx is not None:
+            # compacted bounce: the streams are drawn on the full grid
+            # (the uncompacted estimator's values) and the surviving rays'
+            # draws pulled through in one gather (film_idx ascends)
+            ug = torch.cat([u1, u2] + ([u_nee] if cfg.nee else []), -1)
+            up = gather_rows_coherent(ug.reshape(m0, -1), film_idx)[None]
+            u1 = up[..., 0:1]
+            u2 = up[..., 1:3]
+            u_nee = up[..., 3:5] if cfg.nee else None
         wi = bsdf.sample_dirs(blob, u1[..., 0], u2, wo, nrm)
         pos = pos.expand(wi.shape)
         if cfg.nee:
-            u_nee = _stream_uniform(cfg, k_nee, s, n, 2, dev)
             wi_e, pdf_e = em.sample_dir(env_sampler, u_nee)
-            hit, shadowed = mk.march_pair(
-                cam, tables, pos, wi, wi_e.expand(wi.shape),
-                n_steps=cfg.march_steps, fine_steps=cfg.fine_steps,
-                shadow_steps=cfg.shadow_steps,
-                shadow_fine_steps=cfg.shadow_fine_steps, **march_kw)
+            hit, shadowed = do_pair(pos, wi, wi_e.expand(wi.shape))
             uv_e = em.bilinear_coords(wi_e, eh, ew)
         else:
-            hit = mk.march_single(cam, tables, pos, wi,
-                                  n_steps=cfg.march_steps,
-                                  fine_steps=cfg.fine_steps, **march_kw)
+            hit = do_march(pos, wi)
             shadowed = torch.zeros(wi.shape[:-1], dtype=torch.bool,
                                    device=dev)
         rec_pdf_at = (em.pdf_dir(env_sampler, wi).to(torch.bfloat16)
@@ -337,16 +409,45 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
                  rec_uvi.to(torch.bfloat16)], -1)
             records.append(BounceRecord(shadowed, hit.hit, hit.idx,
                                         blob=rec_blob, nrm=rec_nrmf,
-                                        aux=rec_aux, recb=rec_recb))
-            base_alive = base_alive & hit.hit
+                                        aux=rec_aux, recb=rec_recb,
+                                        extras=extras))
         else:
             records.append(BounceRecord(
                 shadowed, hit.hit, hit.idx, rec_blob, rec_nrm,
                 wi_e.to(torch.bfloat16) if cfg.nee else None,
                 pdf_e.to(torch.bfloat16) if cfg.nee else None,
-                rec_pdf_at, rec_wi, rec_uvi, rec_uvf))
-        idx = hit.idx
-        wo = -wi
+                rec_pdf_at, rec_wi, rec_uvi, rec_uvf, extras=extras))
+
+        if do_compact and b < cfg.max_depth - 2:
+            # stable-partition the live rays (hit and alive) of this
+            # bounce; bounce b+1 runs on the compacted prefix only. One
+            # gather pulls their continuation state through:
+            # [vertex idx | film hi, lo | exact f32 lobe direction]
+            cap = caps_abs(b + 1)
+            sel, count = compact_sel((hit.hit & base_alive).reshape(-1), cap)
+            if film_idx is None:
+                film_src = torch.arange(m0, dtype=torch.int32,
+                                        device=dev).reshape(s, n)
+            else:
+                film_src = film_idx[None]
+            f_hi, f_lo = _f32_exact_split(film_src)
+            pack_src = torch.cat(
+                [hit.idx.to(torch.float32)[..., None], f_hi[..., None],
+                 f_lo[..., None], wi], -1)
+            pack = gather_rows_coherent(pack_src.reshape(-1, 6), sel)
+            idx = pack[:, 0].to(torch.int32)[None]              # (1, cap)
+            film_idx = _f32_exact_join(pack[:, 1], pack[:, 2])  # (cap,)
+            wo = -pack[None, :, 3:6]
+            base_alive = (torch.arange(cap, dtype=torch.int32, device=dev)
+                          < count)[None]                        # (1, cap)
+            pending = (sel, count, idx[0], film_idx)
+        else:
+            idx = hit.idx
+            wo = -wi
+            if fused:
+                # a dead ray stays dead: the packed gates of later
+                # bounces depend on this alive chain
+                base_alive = base_alive & hit.hit
     return tuple(records)
 
 
@@ -373,12 +474,41 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
         radiance = radiance + torch.where(valid[None, :, None], 0.0,
                                           sky[None])
 
+    def prev_dir(field, sel):
+        """wo of a bounce: minus the previous bounce's recorded lobe
+        direction, pulled through the partition ``sel`` of a compacted
+        bounce and normalized after the bf16 round trip."""
+        w_prev = field.to(torch.float32)
+        if sel is not None:
+            w_prev = gather_rows_coherent(w_prev.reshape(-1, 3), sel)[None]
+        return -_normalize9(w_prev)
+
     use_fused = _fused_shade_eligible(cfg, bsdf, envmap)
+    m0 = s * n
+    film_rad = None   # (m0, 3) radiance of the compacted bounces
     for b in range(cfg.max_depth - 1):
         rec = records[b]
         packed = rec.aux is not None
         if use_fused != packed:
             raise ValueError("trace records do not match the shade mode")
+        sel = None
+        if rec.extras is not None:
+            # compacted bounce: the throughput chain follows the stable
+            # partition through a differentiable gather; everything else
+            # is a read of the compacted records
+            sel, count, vtx_idx, film_pos = rec.extras
+            cap = sel.shape[0]
+            throughput = gather_coherent_diff(
+                throughput.reshape(-1, 3), sel)[None]          # (1, cap, 3)
+            idx = vtx_idx[None]
+            alive = (torch.arange(cap, dtype=torch.int32, device=dev)
+                     < count)[None]
+            if film_rad is None:
+                film_rad = torch.zeros((m0, 3), dtype=torch.float32,
+                                       device=dev)
+
+        if sel is not None and not packed:
+            wo = prev_dir(records[b - 1].wi, sel)
         if b == 0 and cfg.film_jitter > 0.0:
             nrm_geo, _, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s)
             blob = bsdf.table
@@ -400,53 +530,59 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
             # it (b = 0: the primary wo)
             tgt = rec.aux.shape[:-1]
             if b > 0:
-                wo_d = -_normalize9(records[b - 1].aux[..., 0:3]
-                                    .to(torch.float32))
+                wo_d = prev_dir(records[b - 1].aux[..., 0:3], sel)
             else:
                 wo_d = wo.expand(tgt + (3,))
             auxf = torch.cat([wo_d.to(torch.bfloat16), rec.aux], -1)
-            throughput, rad_delta = shade_bounce_fused(
+            throughput, contrib_b = shade_bounce_fused(
                 envmap, blob[..., :5].expand(tgt + (5,)),
                 throughput.expand(tgt + (3,)), rec.nrm, auxf, rec.recb)
-            radiance = radiance + rad_delta
-            alive = alive & rec.hit
-            idx = rec.idx
-            continue
-
-        nrm = (nrm_geo if cfg.use_mesh_normal
-               else _normalize9(blob[..., 5:8]))
-        uvi = rec.uvi.to(torch.int32)
-        uvf = rec.uvf.to(torch.float32)
-        if cfg.nee:
-            wi_e = rec.wi_e.to(torch.float32)
-            pdf_e = rec.pdf_e.to(torch.float32)
-            le = em.lookup_bilinear_at(envmap, uvi[..., 0], uvi[..., 1],
-                                       uvf[..., 0], uvf[..., 1])
-            f_e, pdf_b_at_e = bsdf.eval(blob, idx, wi_e, wo, nrm)
-            w_mis = pdf_e / (pdf_e + pdf_b_at_e.detach() + 1e-9)
-            contrib = throughput * f_e / (pdf_e + 1e-9) * w_mis * le
-            contrib_b = torch.where((alive & ~rec.shadowed)[..., None],
-                                    contrib, 0.0)
         else:
-            contrib_b = 0.0
-        wi = _normalize9(rec.wi.to(torch.float32))
-        f_b, pdf_b = bsdf.eval(blob, idx, wi, wo, nrm)
-        pdf_b = pdf_b.detach()
-        weight = bsdf.weight(f_b, pdf_b)
-        o = 2 if cfg.nee else 0
-        le_miss = em.lookup_bilinear_at(envmap, uvi[..., o], uvi[..., o + 1],
-                                        uvf[..., o], uvf[..., o + 1])
-        w_mis_b = (pdf_b / (pdf_b + rec.pdf_at.to(torch.float32) + 1e-9)
-                   if cfg.nee else 1.0)
-        contrib_b = contrib_b + torch.where(
-            (alive & ~rec.hit)[..., None],
-            throughput * weight * w_mis_b * le_miss, 0.0)
-        radiance = radiance + contrib_b
-        throughput = throughput * weight
+            nrm = (nrm_geo if cfg.use_mesh_normal
+                   else _normalize9(blob[..., 5:8]))
+            uvi = rec.uvi.to(torch.int32)
+            uvf = rec.uvf.to(torch.float32)
+            if cfg.nee:
+                wi_e = rec.wi_e.to(torch.float32)
+                pdf_e = rec.pdf_e.to(torch.float32)
+                le = em.lookup_bilinear_at(envmap, uvi[..., 0], uvi[..., 1],
+                                           uvf[..., 0], uvf[..., 1])
+                f_e, pdf_b_at_e = bsdf.eval(blob, idx, wi_e, wo, nrm)
+                w_mis = pdf_e / (pdf_e + pdf_b_at_e.detach() + 1e-9)
+                contrib = throughput * f_e / (pdf_e + 1e-9) * w_mis * le
+                contrib_b = torch.where((alive & ~rec.shadowed)[..., None],
+                                        contrib, 0.0)
+            else:
+                contrib_b = 0.0
+            wi = _normalize9(rec.wi.to(torch.float32))
+            f_b, pdf_b = bsdf.eval(blob, idx, wi, wo, nrm)
+            pdf_b = pdf_b.detach()
+            weight = bsdf.weight(f_b, pdf_b)
+            o = 2 if cfg.nee else 0
+            le_miss = em.lookup_bilinear_at(
+                envmap, uvi[..., o], uvi[..., o + 1], uvf[..., o],
+                uvf[..., o + 1])
+            w_mis_b = (pdf_b / (pdf_b + rec.pdf_at.to(torch.float32) + 1e-9)
+                       if cfg.nee else 1.0)
+            contrib_b = contrib_b + torch.where(
+                (alive & ~rec.hit)[..., None],
+                throughput * weight * w_mis_b * le_miss, 0.0)
+            throughput = throughput * weight
+            wo = -wi
+
+        if sel is not None:
+            # contributions return to their film slots through a
+            # differentiable scatter-add (padding rows carry exact zeros:
+            # their gates are dead)
+            film_rad = film_rad + scatter_add_coherent_diff(
+                m0, contrib_b.reshape(-1, 3), film_pos)
+        else:
+            radiance = radiance + contrib_b
         alive = alive & rec.hit
         idx = rec.idx
-        wo = -wi
 
+    if film_rad is not None:
+        radiance = radiance + film_rad.reshape(s, n, 3)
     img = torch.mean(radiance, dim=0)
     return torch.nan_to_num(img, nan=0.0, posinf=0.0,
                             neginf=0.0).reshape(h, w, 3)
@@ -466,6 +602,49 @@ def trace_step_records(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     return tuple(_trace_chunk_paths(keys[i], cfg, cam, gbuf, mats, envmap,
                                     bsdf, tables)
                  for i in range(n_chunks_of(cfg)))
+
+
+def _record_chunks(records):
+    """The per-chunk record tuples inside any nesting of groups."""
+    if records and isinstance(records[0], BounceRecord):
+        yield records
+    else:
+        for r in records:
+            yield from _record_chunks(r)
+
+
+def compact_cap_utilization(records):
+    """Largest live-count / cap of each compacted bounce over the chunks
+    of ``records`` (one ``trace_step_records`` result or a list of them):
+    [(bounce, 0-d tensor)]. A saturated cap drops live rays, which dims
+    the image; callers read the tensors at the cadence they print."""
+    fracs = {}
+    for chunk in _record_chunks(records):
+        for b, rec in enumerate(chunk):
+            if rec.extras is not None:
+                sel, count = rec.extras[0], rec.extras[1]
+                fracs.setdefault(b, []).append(
+                    count.to(torch.float32) / float(sel.shape[-1]))
+    return [(b, torch.stack(v).max()) for b, v in sorted(fracs.items())]
+
+
+def probe_compact_caps(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
+                       mats: Materials, envmap, bsdf=None,
+                       margin: float = 1.3):
+    """Measure the per-bounce alive fractions on one uncompacted chunk and
+    return ``compact_caps`` sized with ``margin``, rounded up to 1/16ths.
+    The fractions depend on the geometry (fixed during an optimization)
+    and weakly on roughness; the margin absorbs that drift. Reads the
+    fractions back to the host: call it once, before the loop."""
+    cfg_p = cfg._replace(spp=min(cfg.chunk, cfg.spp), compact_caps=())
+    recs = trace_step_records(key, cfg_p, cam, gbuf, mats, envmap, bsdf)[0]
+    alive = gbuf.valid.reshape(-1)[None].expand(recs[0].hit.shape)
+    caps = []
+    for b in range(cfg.max_depth - 2):
+        alive = alive & recs[b].hit
+        frac = float(alive.to(torch.float32).mean())
+        caps.append(min(max(-(-frac * margin * 16 // 1), 1) / 16.0, 1.0))
+    return tuple(caps)
 
 
 def shade_from_records(key, records, cfg: RenderConfig, cam: Camera,

@@ -11,9 +11,12 @@ from materialist_tpu_torch.camera import Camera
 from materialist_tpu_torch.ops import brdf
 from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.ops.kernels import envkernels as ek
+from materialist_tpu_torch.ops.kernels import gather
 from materialist_tpu_torch.ops.kernels import march as mk
 from materialist_tpu_torch.ops.kernels import rowops
 from materialist_tpu_torch.ops.kernels import shadebounce as sb
+from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
+from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render import shader
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
 
@@ -111,3 +114,62 @@ def test_env_kernels(card, scene):
     torch.testing.assert_close(ek.env_lookup_bilinear(env, u0, v0, du, dv),
                                ek.env_lookup_bilinear_plain(env, u0, v0, du,
                                                             dv))
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
+def test_row_gather_and_compact_sel(card, exact):
+    g = torch.Generator(device=card).manual_seed(4)
+    m, cap = 50000, 30720
+    table = torch.randn((m, 6), generator=g, device=card)
+    alive = torch.rand((m,), generator=g, device=card) < 0.5
+    sel, count = rowops.compact_sel(alive, cap)
+    sel_p, count_p = rowops.compact_sel_plain(alive, cap)
+    assert torch.equal(sel, sel_p) and int(count) == int(count_p)
+    rnd = torch.randint(0, m, (3, 777), generator=g, device=card,
+                        dtype=torch.int32)
+    for idx in (sel, rnd):
+        assert torch.equal(rowops.row_gather(table, idx, exact=exact),
+                           rowops.row_gather_plain(table, idx, exact))
+    t = table.clone().requires_grad_()
+    out = rowops.gather_coherent_diff(t, sel)
+    film = rowops.scatter_add_coherent_diff(m, out, sel)
+    film.backward(torch.ones_like(film))
+    assert torch.equal(film.detach()[sel[:int(count)].long()],
+                       table[sel[:int(count)].long()])
+    assert torch.isfinite(t.grad).all() and float(t.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("shadow_only", [False, True],
+                         ids=["full", "shadow_only"])
+def test_march_single(card, scene, shadow_only):
+    cam, gb, _, _ = scene
+    s, n = 2, cam.height * cam.width
+    tab = mk.march_tables(gb.dist, gb.valid)
+    k = rng.split(rng.key(5), 2)
+    d = brdf.sample_dirs(rng.uniform(k[0], (s, n), card),
+                         rng.uniform(k[1], (s, n, 2), card),
+                         gb.wo.reshape(n, 3).expand(s, n, 3),
+                         gb.normal_geo.reshape(n, 3),
+                         torch.full((n, 1), 0.5, device=card))
+    o = gb.position.reshape(n, 3).expand(s, n, 3)
+    kw = dict(n_steps=24, fine_steps=6, interval_frac=0.05,
+              shadow_only=shadow_only)
+    hk = mk.march_single(cam, tab, o, d, **kw)
+    hp = ss.march_mip(cam, tab.dist, tab.valid, tab.mip, o, d,
+                      mip_factor=tab.mip_f, fine_table=tab.fine,
+                      fine_factor=tab.fine_f, **kw)
+    for a, b in ((hk.hit, hp.hit), (hk.idx, hp.idx)):
+        assert float((a == b).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (256, 256), (16, 16, 3)])
+def test_table_lookups(card, shape):
+    g = torch.Generator(device=card).manual_seed(6)
+    tab = torch.randn(shape, generator=g, device=card)
+    idx = torch.randint(0, shape[0] * shape[1], (4, 5000), generator=g,
+                        device=card, dtype=torch.int32)
+    assert torch.equal(gather.onehot_gather(tab, idx),
+                       gather.onehot_gather_plain(tab, idx))
+    if len(shape) == 2:
+        assert torch.equal(vreg.vreg_gather(tab, idx),
+                           vreg.vreg_gather_plain(tab, idx))
