@@ -6,9 +6,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. prints the card and its power limit, builds the CUDA kernels from
    ``materialist_tpu_torch/csrc`` and prints the build time;
 2. holds every kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it (M = 4·512² vertices), and times kernel,
-   plain version and, where one PyTorch call does the same, that call
-   (``Tensor.index_add_``, ``torch.index_select``);
+   the shapes its path gives it, and times kernel, plain version and,
+   where one PyTorch call does the same, that call (``Tensor.index_add_``,
+   ``torch.index_select``, ``torch.nonzero``). The march, the row gather
+   and the row scatter-add (by caller: material adjoint, sky adjoint,
+   compaction scatters) and ``compact_sel`` are timed at every shape that
+   holds at least a tenth of their launches on the main path, on inputs
+   recorded from one compacted trace chunk of the scene (its indices, its
+   dead rows); the entries at M = 4·512² with noise in every row stay
+   beside them as the worst case. This runs after the main path, whose
+   launches by shape it prints first;
 3. drives the paths, each with the launch counters set to 0 just before
    and read just after:
    - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
@@ -143,8 +150,13 @@ def main():
     _lib.lib()
     log(f"build_s {time.perf_counter() - t0:.2f}")
 
-    kernels = check_kernels(torch, _lib)
-    launches = {"main": main_path(torch, _lib),
+    main_launches, by_shape, caps = main_path(torch, _lib)
+    log("launches by shape: " + json.dumps(
+        [{"name": nm, "shape": list(shp), "launches": v}
+         for (nm, shp), v in sorted(by_shape.items(),
+                                    key=lambda kv: (kv[0][0], -kv[1]))]))
+    kernels = check_kernels(torch, _lib, caps, by_shape)
+    launches = {"main": main_launches,
                 "nee_false": nee_false_path(torch, _lib),
                 "mip": mip_path(torch, _lib),
                 "standalone": standalone_lookup(torch, _lib)}
@@ -244,7 +256,140 @@ def torch_isfinite_all(x):
     return torch.isfinite(x).all()
 
 
-def check_kernels(torch, _lib):
+def march_inputs(torch, dev):
+    """The march's worst-case input: M = 4·512² vertices of a seeded
+    non-flat depth map, lobe directions from the BRDF sampler, NEE
+    directions from the envmap sampler, the origin a broadcast over the
+    four samples. Returns (cam, gbuf, tables, origin, d_lobe, d_nee, kw)."""
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.ops import brdf
+    from materialist_tpu_torch.ops import envmap as em
+    from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
+    from materialist_tpu_torch.render import shader
+    cam, gbuf = seeded_depth_scene(torch, dev)
+    _, _, _, env = photo_scene(torch, dev)
+    cfg = _render_cfg(InverseOptions())
+    tab = shader.march_tables(cfg, gbuf)
+    s, n = 4, 512 * 512
+    k = rng.split(rng.key(SEED), 3)
+    u1 = rng.uniform(k[0], (s, n), dev)
+    u2 = rng.uniform(k[1], (s, n, 2), dev)
+    u_nee = rng.uniform(k[2], (s, n, 2), dev)
+    wo = gbuf.wo.reshape(n, 3).expand(s, n, 3)
+    d_lobe = brdf.sample_dirs(u1, u2, wo, gbuf.normal_geo.reshape(n, 3),
+                              torch.full((n, 1), 0.5, device=dev))
+    d_nee, _ = em.sample_dir(em.build_sampler(env), u_nee)
+    origin = gbuf.position.reshape(n, 3).expand(s, n, 3)
+    kw = dict(n_steps=cfg.march_steps, fine_steps=cfg.fine_steps,
+              shadow_steps=cfg.shadow_steps,
+              shadow_fine_steps=cfg.shadow_fine_steps, t_min_frac=2e-3,
+              t_max_frac=3.0, bias_frac=4e-3,
+              interval_frac=cfg.march_interval_frac)
+    return cam, gbuf, tab, origin, d_lobe, d_nee, kw
+
+
+def needed_march_steps(torch, cam, tab, origin, direction, n_steps,
+                       fine_steps, shadow_only, t_min_frac=2e-3,
+                       t_max_frac=3.0, bias_frac=4e-3):
+    """March steps (coarse + fine, summed over the rays) that these rays
+    need: a step counts for a ray as long as a value that is read later can
+    still change (coarse: fewer rising edges than are read and still inside
+    the frustum or past an edge; fine: its interval has an edge and no
+    crossing was found yet). It is the work the bound of the march counts."""
+    o = origin.reshape(-1, 3)
+    d = direction.reshape(-1, 3)
+    m = d.shape[0]
+    dev = d.device
+    h, w = tab.dist.shape
+    ratio = (t_max_frac / t_min_frac) ** (1.0 / max(n_steps - 1, 1))
+
+    def project(q):
+        uv = cam.project(q)
+        ui = torch.floor(uv[..., 0] + 0.5).to(torch.int32)
+        vi = torch.floor(uv[..., 1] + 0.5).to(torch.int32)
+        return ui, vi, ((ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
+                        & (q[..., 2] < 0))
+
+    def cell(ui, vi, f, table):
+        th, tw = table.shape
+        return (torch.clamp(vi // f, 0, th - 1) * tw
+                + torch.clamp(ui // f, 0, tw - 1)).long()
+
+    ui, vi, _ = project(o)
+    start = cell(ui, vi, tab.mip_f, tab.mip)
+    t = tab.t_lo.expand(m)
+    t_prev = t
+    tb = [t, t]
+    tc = [t, t]
+    active = torch.ones((m,), dtype=torch.bool, device=dev)
+    prev = torch.zeros_like(active)
+    edges = torch.zeros((m,), dtype=torch.int32, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(n_steps):
+        steps += active.sum()
+        q = o + t[:, None] * d
+        ui, vi, inside = project(q)
+        mi = cell(ui, vi, tab.mip_f, tab.mip)
+        cand = (inside & (-q[:, 2] > tab.mip.reshape(-1)[mi]
+                          * (1.0 - bias_frac)) & (mi != start) & active)
+        rising = cand & ~prev
+        for e in range(2):
+            new = rising & (edges == e)
+            tb[e] = torch.where(new, t_prev, tb[e])
+            tc[e] = torch.where(new, t, tc[e])
+        edges = edges + rising.to(torch.int32)
+        active = (active & (edges < (1 if shadow_only else 2))
+                  & (inside | (edges > 0)))
+        prev = cand
+        t_prev = t
+        t = t * ratio
+    if shadow_only:
+        return int(steps)
+    hit = torch.zeros_like(active)
+    for e in range(2):
+        for k in range(fine_steps):
+            act = (edges > e) & ~hit
+            steps += act.sum()
+            tt = tb[e] + (tc[e] * ratio - tb[e]) * ((k + 1.0) / fine_steps)
+            q = o + tt[:, None] * d
+            ui, vi, inside = project(q)
+            surf = tab.fine.reshape(-1)[cell(ui, vi, tab.fine_f, tab.fine)]
+            hit = hit | (act & inside & (surf < 1.0e29)
+                         & (-q[:, 2] > surf * (1.0 + bias_frac)))
+    return int(steps)
+
+
+def capture_trace(torch, caps):
+    """One trace chunk of the photo scene with the main path's compaction
+    caps, and the inputs of every march_pair and compact_sel call of it.
+    Returns (records, march calls, compact_sel calls)."""
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.ops.kernels import march as mk
+    from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
+    from materialist_tpu_torch.render import shader
+    cam, gbuf, mats, env = photo_scene(torch, torch.device(DEV))
+    cfg = _render_cfg(InverseOptions())._replace(compact_caps=tuple(caps))
+    marches, sels = [], []
+    pair, sel = mk.march_pair, shader.compact_sel
+
+    def rec_pair(cam_, tab, o, dl, dn, **kw):
+        marches.append((cam_, tab, o, dl, dn, kw))
+        return pair(cam_, tab, o, dl, dn, **kw)
+
+    def rec_sel(alive, cap):
+        sels.append((alive, cap))
+        return sel(alive, cap)
+
+    mk.march_pair, shader.compact_sel = rec_pair, rec_sel
+    try:
+        recs = shader._trace_chunk_paths(rng.key(SEED + 1), cfg, cam, gbuf,
+                                         mats, env)
+    finally:
+        mk.march_pair, shader.compact_sel = pair, sel
+    return recs, marches, sels
+
+
+def check_kernels(torch, _lib, caps, by_shape):
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.ops import brdf
     from materialist_tpu_torch.ops import envmap as em
@@ -288,57 +433,91 @@ def check_kernels(torch, _lib):
         if not ok:
             fail(f"kernel {name} disagrees with its plain version")
 
+    def shapes_of(counter):
+        """The shapes that hold at least a tenth of a kernel's launches
+        on the main path, most launched (then largest) first:
+        [(shape, launches)]."""
+        rows = [(shp, v) for (nm, shp), v in by_shape.items()
+                if nm == counter]
+        total = sum(v for _, v in rows)
+        if not total:
+            fail(f"no launches by shape recorded for {counter}")
+        return sorted(((shp, v) for shp, v in rows if v >= 0.1 * total),
+                      key=lambda r: (-r[1], [-x for x in r[0]]))
+
     log("[kernels] main-path shapes, kernel vs plain on the card")
     cam_p, gbuf_p, mats_p, env = photo_scene(torch, dev)
     s = 4
     n = 512 * 512
     m = s * n
     sampler = em.build_sampler(env)
-
-    # ---- A: march_pair on a seeded non-flat depth map
-    cam_a, gbuf_a = seeded_depth_scene(torch, dev)
     cfg = _render_cfg(InverseOptions())
-    tab = shader.march_tables(cfg, gbuf_a)
-    k = rng.split(rng.key(SEED), 3)
-    u1 = rng.uniform(k[0], (s, n), dev)
-    u2 = rng.uniform(k[1], (s, n, 2), dev)
-    u_nee = rng.uniform(k[2], (s, n, 2), dev)
-    wo = gbuf_a.wo.reshape(n, 3).expand(s, n, 3)
-    nrm = gbuf_a.normal_geo.reshape(n, 3)
-    d_lobe = brdf.sample_dirs(u1, u2, wo, nrm,
-                              torch.full((n, 1), 0.5, device=dev))
-    d_nee, _ = em.sample_dir(sampler, u_nee)
-    origin = gbuf_a.position.reshape(n, 3).expand(s, n, 3).contiguous()
-    kw = dict(n_steps=cfg.march_steps, fine_steps=cfg.fine_steps,
-              shadow_steps=cfg.shadow_steps,
-              shadow_fine_steps=cfg.shadow_fine_steps,
-              interval_frac=cfg.march_interval_frac)
-    hit_k, shad_k = mk.march_pair(cam_a, tab, origin, d_lobe, d_nee, **kw)
-    hit_p, shad_p = mk.march_pair_plain(
-        cam_a, tab, origin, d_lobe, d_nee, t_min_frac=2e-3, t_max_frac=3.0,
-        bias_frac=4e-3, **kw)
-    agree = {nm: float((a == b).float().mean()) for nm, a, b in (
-        ("hit", hit_k.hit, hit_p.hit), ("idx", hit_k.idx, hit_p.idx),
-        ("shadowed", shad_k, shad_p))}
-    both = hit_k.hit & hit_p.hit & (hit_k.idx == hit_p.idx)
-    t_err = float((hit_k.t - hit_p.t).abs()[both].max()) if both.any() \
-        else 0.0
-    hit_frac = float(hit_p.hit.float().mean())
-    log(f"  march_pair: flags agree {agree} (>= 0.999), hit fraction "
-        f"{hit_frac:.3f}, shadowed fraction "
-        f"{float(shad_p.float().mean()):.3f}, t max_abs_err {t_err:.3e} "
-        "where both hit")
-    ok = all(v >= 0.999 for v in agree.values()) and 0.01 < hit_frac < 0.99
-    ms = dev_ms(lambda: mk.march_pair(cam_a, tab, origin, d_lobe, d_nee,
-                                       **kw))
-    pms = cuda_ms(lambda: mk.march_pair_plain(
-        cam_a, tab, origin, d_lobe, d_nee, t_min_frac=2e-3, t_max_frac=3.0,
-        bias_frac=4e-3, **kw), iters=3, warmup=1)
-    steps = (cfg.march_steps + 2 * cfg.fine_steps + cfg.shadow_steps
-             + 2 * max(cfg.shadow_fine_steps, 1))
-    entry("march_pair", "march_pair.cu", "march_kernel.py:505", ok, t_err,
-          ms, pms, m * (36 + 10) + 4 * (tab.mip.numel() + tab.fine.numel()),
-          m * steps * FLOPS_PER_MARCH_STEP)
+    crecs, march_calls, sel_calls = capture_trace(torch, caps)
+
+    # ---- A: march_pair, first on the worst case (a seeded non-flat depth
+    # map, M = 4·512², the origin a broadcast over the samples), then at
+    # every main-path shape on the rays of the recorded trace chunk
+    def march_case(tag, cam_, tab_, o, dl, dn, kw, want_hits):
+        hit_k, shad_k = mk.march_pair(cam_, tab_, o, dl, dn, **kw)
+        hit_p, shad_p = mk.march_pair_plain(cam_, tab_, o, dl, dn, **kw)
+        agree = {nm: float((a == b).float().mean()) for nm, a, b in (
+            ("hit", hit_k.hit, hit_p.hit), ("idx", hit_k.idx, hit_p.idx),
+            ("shadowed", shad_k, shad_p))}
+        both = hit_k.hit & hit_p.hit & (hit_k.idx == hit_p.idx)
+        t_err = float((hit_k.t - hit_p.t).abs()[both].max()) if both.any() \
+            else 0.0
+        hit_frac = float(hit_p.hit.float().mean())
+        log(f"  march_pair {tag}: flags agree {agree} (>= 0.999), hit "
+            f"fraction {hit_frac:.4f}, shadowed fraction "
+            f"{float(shad_p.float().mean()):.4f}, t max_abs_err {t_err:.3e} "
+            "where both hit")
+        ok = all(v >= 0.999 for v in agree.values()) and (
+            not want_hits or 0.01 < hit_frac < 0.99)
+        ms = dev_ms(lambda: mk.march_pair(cam_, tab_, o, dl, dn, **kw))
+        mm = dl.numel() // 3
+        shadow_only = kw["shadow_fine_steps"] == 0
+        steps = (needed_march_steps(torch, cam_, tab_, o, dl, kw["n_steps"],
+                                    kw["fine_steps"], False)
+                 + needed_march_steps(torch, cam_, tab_, o, dn,
+                                      kw["shadow_steps"],
+                                      max(kw["shadow_fine_steps"], 1),
+                                      shadow_only))
+        full = mm * (kw["n_steps"] + 2 * kw["fine_steps"]
+                     + kw["shadow_steps"]
+                     + (0 if shadow_only else 2 * kw["shadow_fine_steps"]))
+        # two directions in, hit/idx/t/shadowed out, the origin's stored
+        # rows (one block when it is a broadcast over the samples), tables
+        bytes_moved = (mm * (24 + 10) + 12 * mk._origin_rows(o).shape[0]
+                       + 4 * (tab_.mip.numel() + tab_.fine.numel()))
+        return dict(ok=ok, t_err=t_err, ms=ms, steps=steps, full=full,
+                    bytes=bytes_moved)
+
+    cam_a, gbuf_a, tab, origin, d_lobe, d_nee, kw_a = march_inputs(torch,
+                                                                   dev)
+    worst = march_case("worst case", cam_a, tab, origin, d_lobe, d_nee, kw_a,
+                       True)
+    pms = cuda_ms(lambda: mk.march_pair_plain(cam_a, tab, origin, d_lobe,
+                                              d_nee, **kw_a),
+                  iters=3, warmup=1)
+    a_shapes = []
+    for (shp, count) in shapes_of("march_pair"):
+        call = [c for c in march_calls if c[3].numel() // 3 == shp[0]]
+        if not call:
+            fail(f"no recorded march of {shp[0]} rays")
+        r = march_case(f"trace chunk, {shp[0]} rays", *call[0], False)
+        b_ms, b_by = bound(r["bytes"], r["steps"] * FLOPS_PER_MARCH_STEP)
+        a_shapes.append(dict(shape=list(shp), launches=count, ok=r["ok"],
+                             ms=r["ms"], device_ms=r["ms"].device_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             steps_needed=r["steps"], steps_full=r["full"]))
+        log(f"    {shp[0]} rays x {count} launches: device "
+            f"{r['ms'].device_ms} ms, bound {b_ms:.4f} ms ({b_by}), steps "
+            f"needed {r['steps']} of {r['full']}")
+    entry("march_pair", "march_pair.cu", "march_kernel.py:505",
+          worst["ok"] and all(x.pop("ok") for x in a_shapes), worst["t_err"],
+          worst["ms"], pms, worst["bytes"],
+          worst["steps"] * FLOPS_PER_MARCH_STEP, by_shape=a_shapes,
+          steps_needed=worst["steps"], steps_full=worst["full"])
 
     # ---- B / B′ on a real trace chunk of the photo scene (bounce 1)
     recs = shader._trace_chunk_paths(rng.key(SEED + 1), cfg, cam_p, gbuf_p,
@@ -381,42 +560,186 @@ def check_kernels(torch, _lib):
           all(oks), max(errs), ms, pms, m * (104 + 56) + envc.numel() * 4,
           m * FLOPS_SHADE_BWD)
 
-    # ---- C′: material-table scatter (bf16 payload) and sky adjoint (f32)
+    # ---- C′ by caller. Each is checked and timed at every main-path
+    # shape on the recorded chunk's indices, its dead rows zero; the
+    # material adjoint also at its worst case (M = 4·512², noise in every
+    # row, the uncompacted bounce-0 hit indices, most of them 0)
+    def scatter_case(tag, cot, idx, rows, exact, coherent=False, base=None):
+        """Kernel against plain version and index_add_; ``base``: the
+        running table of an in-place call."""
+        def run():
+            return rowops.row_scatter_add(
+                cot, idx, rows, exact=exact, coherent=coherent,
+                out=None if base is None else acc)
+        acc = None if base is None else base.clone()
+        ck = run()
+        cp = rowops.row_scatter_add_plain(cot, idx, rows, exact=exact)
+        if base is not None:
+            cp = base + cp
+        o, e = compare(tag, ck, cp, 1e-5 * float(cp.abs().max()), 1e-5)
+        ms = dev_ms(run)
+        il = idx.long()
+        cb = cot if exact else cot.to(torch.bfloat16).float()
+        if base is None:
+            lib_ms = dev_ms(lambda: torch.zeros(
+                (rows, cot.shape[1]), device=dev).index_add_(0, il, cb))
+        else:
+            lib_ms = dev_ms(lambda: acc.index_add_(0, il, cb))
+        live = int((cot != 0).any(-1).sum())
+        touched = int(torch.unique(il[(cot != 0).any(-1)]).numel())
+        k_ = cot.shape[1]
+        # rows and indices read once; a new table written once, a running
+        # one read and written where it is touched
+        bytes_moved = cot.numel() * 4 + idx.numel() * 4 + (
+            rows * k_ * 4 if base is None else 2 * touched * k_ * 4)
+        return dict(ok=o, err=e, ms=ms, lib=lib_ms, bytes=bytes_moved,
+                    live=live, touched=touched)
+
+    def compacted_bounce(cap):
+        """(sel, count, vertex idx, film idx) of the recorded bounce that
+        was compacted to ``cap`` rows."""
+        for r in crecs:
+            if r.extras is not None and r.extras[0].shape[0] == cap:
+                return r.extras
+        fail(f"no recorded bounce of {cap} compacted rows")
+
+    def by_shape_rows(counter, make):
+        """One row per main-path shape of ``counter``: make(shape) gives
+        the arguments of scatter_case."""
+        rows = []
+        for shp, count in shapes_of(counter):
+            r = scatter_case(f"{counter} {shp}", **make(shp))
+            b_ms, b_by = bound(r["bytes"], 0)
+            rows.append(dict(shape=list(shp), launches=count, r=r,
+                             ms=r["ms"], device_ms=r["ms"].device_ms,
+                             library_ms=r["lib"],
+                             library_device_ms=r["lib"].device_ms,
+                             bound_ms=b_ms, live_rows=r["live"],
+                             rows_touched=r["touched"],
+                             max_abs_err=r["err"]))
+            log(f"    {counter} {shp} x {count} launches: {r['live']} live "
+                f"rows onto {r['touched']}, device {r['ms'].device_ms} ms, "
+                f"bound {b_ms:.4f} ms, index_add_ {r['lib'].device_ms} ms")
+        return rows
+
+    def dead_rows_zero(cot, count):
+        live = torch.arange(cot.shape[0], device=dev) < count
+        return torch.where(live[:, None], cot, 0.0)
+
+    def scatter_entry(name, rows, plain_args, **more):
+        """The entry of one caller: its most launched shape, the others
+        beside it."""
+        first = rows[0]["r"]
+        pms = cuda_ms(lambda: rowops.row_scatter_add_plain(*plain_args),
+                      iters=3, warmup=1)
+        ok = all(x.pop("r")["ok"] for x in rows)
+        entry(name, "rowops.cu", "rowops.py:189", ok, first["err"],
+              first["ms"], pms, first["bytes"], 0, library_ms=first["lib"],
+              by_shape=rows, **more)
+
+    # material adjoint: bf16 payload, (cap, 8) rows onto the material table
+    def material(shp):
+        _, count, vtx, _ = compacted_bounce(shp[0])
+        cot = torch.randn((shp[0], 8), generator=g, device=dev)
+        cot[:, 5:] = 0.0
+        return dict(cot=dead_rows_zero(cot, count), idx=vtx.contiguous(),
+                    rows=shp[2], exact=False)
+    rows_m = by_shape_rows("row_scatter_add_bf16", material)
     idx_m = r0.idx.reshape(m).to(torch.int32).contiguous()
     cot_m = torch.randn((m, 8), generator=g, device=dev)
     cot_m[:, 5:] = 0.0
-    n_tab = n
-    for name, cot, idx, rows, exact in (
-            ("row_scatter_add_bf16", cot_m, idx_m, n_tab, False),
-            ("row_scatter_add", None, None, 512, True)):
-        if cot is None:
-            u0, v0, du, dv = em.bilinear_coords(
-                -gbuf_p.wo.reshape(n, 3), 16, 32)
-            w = env.shape[1]
-            taps = ((v0, u0, (1 - du) * (1 - dv)),
-                    (v0, (u0 + 1) % w, du * (1 - dv)),
-                    (torch.clamp(v0 + 1, 0, 15), u0, (1 - du) * dv),
-                    (torch.clamp(v0 + 1, 0, 15), (u0 + 1) % w, du * dv))
-            base = torch.randn((n, 3), generator=g, device=dev)
-            idx = torch.cat([(vi * w + ui).reshape(-1)
-                             for vi, ui, _ in taps]).to(torch.int32)
-            cot = torch.cat([wt[:, None] * base for _, _, wt in taps])
-        ck = rowops.row_scatter_add(cot, idx, rows, exact=exact)
-        cp = rowops.row_scatter_add_plain(cot, idx, rows, exact=exact)
-        scale = float(cp.abs().max())
-        o, e = compare(name, ck, cp, 1e-5 * scale, 1e-5)
-        ms = dev_ms(lambda: rowops.row_scatter_add(cot, idx, rows,
-                                                    exact=exact))
-        pms = cuda_ms(lambda: rowops.row_scatter_add_plain(cot, idx, rows,
-                                                           exact=exact),
-                      iters=5)
-        il = idx.long()
-        cb = cot if exact else cot.to(torch.bfloat16).float()
-        lib_ms = dev_ms(lambda: torch.zeros(
-            (rows, cot.shape[1]), device=dev).index_add_(0, il, cb))
-        entry(name, "rowops.cu", "rowops.py:189", o, e, ms, pms,
-              cot.numel() * 4 + idx.numel() * 4 + rows * cot.shape[1] * 4,
-              cot.numel(), library_ms=lib_ms)
+    wc = scatter_case("row_scatter_add_bf16 worst case", cot_m, idx_m, n,
+                      False)
+    if not wc["ok"]:
+        fail("row_scatter_add_bf16 disagrees on its worst case")
+    first = material(rows_m[0]["shape"])
+    scatter_entry("row_scatter_add_bf16", rows_m,
+                  (first["cot"], first["idx"], first["rows"], False),
+                  worst_case=dict(
+                      shape=[m, 8, n], ms=wc["ms"],
+                      device_ms=wc["ms"].device_ms, library_ms=wc["lib"],
+                      library_device_ms=wc["lib"].device_ms,
+                      bound_ms=bound(wc["bytes"], 0)[0],
+                      rows_touched=wc["touched"], max_abs_err=wc["err"]))
+
+    # sky adjoint: exact, the four bilinear taps of every pixel's sky
+    # lookup onto the 16 x 32 emitter (a table of 6 KB)
+    u0, v0, du, dv = em.bilinear_coords(-gbuf_p.wo.reshape(n, 3), 16, 32)
+    ew = env.shape[1]
+    taps = ((v0, u0, (1 - du) * (1 - dv)), (v0, (u0 + 1) % ew, du * (1 - dv)),
+            (torch.clamp(v0 + 1, 0, 15), u0, (1 - du) * dv),
+            (torch.clamp(v0 + 1, 0, 15), (u0 + 1) % ew, du * dv))
+    base_s = torch.randn((n, 3), generator=g, device=dev)
+    idx_s = torch.cat([(vi * ew + ui).reshape(-1)
+                       for vi, ui, _ in taps]).to(torch.int32)
+    cot_s = torch.cat([wt[:, None] * base_s for _, _, wt in taps])
+
+    def sky(shp):
+        if tuple(shp) != (4 * n, 3, 512):
+            fail(f"unexpected shape of the exact scatter-add: {shp}")
+        return dict(cot=cot_s, idx=idx_s, rows=512, exact=True)
+    scatter_entry("row_scatter_add", by_shape_rows("row_scatter_add", sky),
+                  (cot_s, idx_s, 512, True))
+
+    # compaction scatters: exact, live indices ascending and unique. Shape
+    # (cap, 3, rows, 1): the film accumulation, in place onto the (M, 3)
+    # buffer at the film indices; (cap, 3, rows, 0): the throughput
+    # adjoint onto the previous bounce's rows at sel
+    def compaction(shp):
+        sel, count, _, film = compacted_bounce(shp[0])
+        cot = dead_rows_zero(torch.randn((shp[0], 3), generator=g,
+                                         device=dev), count)
+        if shp[3]:
+            return dict(cot=cot, idx=film.contiguous(), rows=shp[2],
+                        exact=True, coherent=True,
+                        base=torch.randn((shp[2], 3), generator=g,
+                                         device=dev))
+        return dict(cot=cot, idx=sel, rows=shp[2], exact=True, coherent=True)
+    rows_c = by_shape_rows("row_scatter_add_coherent", compaction)
+    first = compaction(rows_c[0]["shape"])
+    scatter_entry("row_scatter_add_coherent", rows_c,
+                  (first["cot"], first["idx"], first["rows"], True))
+
+    # ---- compact_sel: the trace's own flags at every main-path shape,
+    # then none alive, all alive and more alive than the cap; sel and
+    # count equal to the plain version's as integers
+    def sel_case(tag, alive, cap):
+        sel_k, cnt_k = rowops.compact_sel(alive, cap)
+        sel_p, cnt_p = rowops.compact_sel_plain(alive, cap)
+        same = bool(torch.equal(sel_k, sel_p)) and int(cnt_k) == int(cnt_p)
+        log(f"  compact_sel {tag}: {int(cnt_p)} of {alive.numel()} into cap "
+            f"{cap}, equal to its plain version: {same}")
+        if not same:
+            fail(f"compact_sel disagrees with its plain version ({tag})")
+
+    rows_s = []
+    for shp, count in shapes_of("compact_sel"):
+        call = [c for c in sel_calls
+                if (c[0].numel(), c[1]) == tuple(shp)]
+        if not call:
+            fail(f"no recorded compact_sel of shape {shp}")
+        alive, cap = call[0]
+        sel_case(f"trace flags {shp}", alive, cap)
+        ms = dev_ms(lambda: rowops.compact_sel(alive, cap))
+        lib = dev_ms(lambda: torch.nonzero(alive))
+        b_ms, _ = bound(alive.numel() + 4 * cap + 4, 0)
+        rows_s.append(dict(shape=list(shp), launches=count, ms=ms,
+                           device_ms=ms.device_ms, library_ms=lib,
+                           library_device_ms=lib.device_ms, bound_ms=b_ms))
+        log(f"    compact_sel {shp} x {count} launches: {ms:.4f} ms, device "
+            f"{ms.device_ms} ms, bound {b_ms:.5f} ms, nonzero {lib:.4f} ms, "
+            f"device {lib.device_ms} ms")
+    alive0, cap0 = [c for c in sel_calls if c[0].numel() == m][0]
+    sel_case("none alive", torch.zeros_like(alive0), cap0)
+    sel_case("all alive", torch.ones_like(alive0), m)
+    sel_case("more alive than the cap", torch.ones_like(alive0), cap0)
+    sel_case("M not a multiple of 16, unaligned", alive0[3:m - 1001], cap0)
+    pms = cuda_ms(lambda: rowops.compact_sel_plain(alive0, cap0), iters=5)
+    entry("compact_sel", "rowops.cu", "rowops.py:189", True, 0.0,
+          rows_s[0]["ms"], pms, rows_s[0]["shape"][0]
+          + 4 * rows_s[0]["shape"][1] + 4, 0,
+          library_ms=rows_s[0]["library_ms"], by_shape=rows_s,
+          jax_function="materialist_tpu/ops/pallas/rowops.py:344")
 
     # ---- D, D′, E
     u_s = rng.uniform(rng.key(SEED + 2), (m, 2), dev)
@@ -460,20 +783,10 @@ def check_kernels(torch, _lib):
 
     # ---- C: row gather at the continuation pack's shape, (m, 6) rows at
     # the ascending indices of a compaction into cap = 9/16 m, and at
-    # random indices; compact_sel against its plain version
+    # random indices; then every main-path shape at ascending indices
     cap = 589824
     alive = torch.rand((m,), generator=g, device=dev) < 0.5
     sel, count = rowops.compact_sel(alive, cap)
-    sel_p, count_p = rowops.compact_sel_plain(alive, cap)
-    same = bool(torch.equal(sel, sel_p)) and int(count) == int(count_p)
-    asc = bool((sel[1:int(count)] > sel[:int(count) - 1]).all())
-    log(f"  compact_sel: {int(count)} live of {m} into cap {cap}, equal to "
-        f"its plain version bit for bit: {same}, ascending: {asc}; "
-        f"{cuda_ms(lambda: rowops.compact_sel(alive, cap)):.4f} ms, plain "
-        f"{cuda_ms(lambda: rowops.compact_sel_plain(alive, cap), iters=5):.4f}"
-        " ms")
-    if not (same and asc):
-        fail("compact_sel disagrees with its plain version")
     table = torch.randn((m, 6), generator=g, device=dev)
     sel_r = torch.randint(0, m, (cap,), generator=g, device=dev,
                           dtype=torch.int32)
@@ -493,9 +806,26 @@ def check_kernels(torch, _lib):
     log(f"  row_gather: ascending {times['ascending']:.4f} ms, bf16 "
         f"{times['bf16']:.4f} ms, random {times['random']:.4f} ms; "
         f"index_select ascending {lib_ms:.4f} ms, random {lib_r:.4f} ms")
+    rows_g = []
+    for shp, cnt in shapes_of("row_gather"):
+        n_t, k_t, m_q = shp
+        tb = torch.randn((n_t, k_t), generator=g, device=dev)
+        ix = torch.sort(torch.randint(0, n_t, (m_q,), generator=g, device=dev,
+                                      dtype=torch.int32)).values
+        o, _ = compare(f"row_gather {shp}", rowops.row_gather(tb, ix),
+                       rowops.row_gather_plain(tb, ix), 0.0, 0.0)
+        oks.append(o)
+        t_k = dev_ms(lambda: rowops.row_gather(tb, ix))
+        t_l = dev_ms(lambda: torch.index_select(tb, 0, ix))
+        rows_g.append(dict(shape=list(shp), launches=cnt, ms=t_k,
+                           device_ms=t_k.device_ms, library_ms=t_l,
+                           library_device_ms=t_l.device_ms,
+                           bound_ms=bound(m_q * (4 + 8 * k_t), 0)[0]))
+        log(f"    row_gather {shp} x {cnt} launches: device "
+            f"{t_k.device_ms} ms, index_select {t_l.device_ms} ms")
     entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
           times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
-          library_ms=lib_ms, ms_bf16=times["bf16"],
+          library_ms=lib_ms, by_shape=rows_g, ms_bf16=times["bf16"],
           ms_random=times["random"], library_ms_random=lib_r,
           device_ms_random=times["random"].device_ms,
           library_device_ms_random=lib_r.device_ms)
@@ -581,7 +911,7 @@ def _scene_inputs(d):
 
 def _optimize_run(torch, _lib, compact, num_epochs, n_rows):
     """One ``optimize`` run on a fresh copy of the scene; returns (best,
-    launches, wall seconds, peak bytes)."""
+    launches, wall seconds, peak bytes, launches by shape)."""
     from materialist_tpu_torch.camera import Camera
     from materialist_tpu_torch.opt.loop import InverseOptions, optimize
     from materialist_tpu_torch.render.scene import make_gbuffer
@@ -607,6 +937,7 @@ def _optimize_run(torch, _lib, compact, num_epochs, n_rows):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_lib.LAUNCHES)
+        by_shape = dict(_lib.LAUNCHES_BY_SHAPE)
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(d, "metrics.jsonl")) as f:
             rows = [json.loads(x) for x in f]
@@ -626,7 +957,7 @@ def _optimize_run(torch, _lib, compact, num_epochs, n_rows):
             torch.isfinite(img).all()):
         fail("rendered image is not a finite 512x512x3 image")
     log(f"  launches: {launches}")
-    return best, launches, wall, peak
+    return best, launches, wall, peak, by_shape
 
 
 def main_path(torch, _lib):
@@ -644,8 +975,8 @@ def main_path(torch, _lib):
              False, 1, 3)):
         log(label + ", optimize at 512x512x64spp")
         runs.append(_optimize_run(torch, _lib, compact, epochs, rows))
-    (best_0, _, wall_0, peak_0), (best, launches, wall, peak), \
-        (best_u, _, wall_u, peak_u) = runs
+    (best_0, _, wall_0, peak_0, _), (best, launches, wall, peak, by_shape), \
+        (best_u, _, wall_u, peak_u, _) = runs
     caps, util = best["compact_caps"], best["cap_util"]
     log(f"  probed compact_caps {caps}, cap_util per bounce {util}")
     if len(caps) != 2 or sorted(util) != [1, 2]:
@@ -667,7 +998,7 @@ def main_path(torch, _lib):
         f"{peak_u / 2**30:.2f}")
     log(f"  wall s (steps): {wall_0:.2f} (3) | {wall:.2f} (7) | "
         f"{wall_u:.2f} (3)")
-    return launches
+    return launches, by_shape, caps
 
 
 def _drive(torch, _lib, fn):

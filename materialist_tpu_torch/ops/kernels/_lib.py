@@ -6,8 +6,9 @@ process (all started together) and the objects are linked into one
 shared library under ``materialist_tpu_torch/build/``, loaded with
 ``ctypes``. Nothing is built when a module is imported.
 
-``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
-it launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches by name and ``LAUNCHES_BY_SHAPE`` by
+name and shape: a wrapper calls ``count_launch`` where it launches its
+kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -35,8 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {name: 0 for name in (
     "march_pair", "march_single", "shade_bounce_fwd", "shade_bounce_bwd",
     "row_gather", "row_scatter_add", "row_scatter_add_bf16",
-    "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear", "onehot_gather",
+    "row_scatter_add_coherent", "compact_sel", "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear", "onehot_gather",
     "vreg_gather")}
+
+# (name, shape tuple) -> launches; the wrappers of the march, the row
+# gather, the row scatter-add and compact_sel say what the shape lists
+LAUNCHES_BY_SHAPE = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -46,6 +51,16 @@ BUILD_SECONDS = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def count_launch(name: str, shape=None) -> None:
+    """One launch of kernel ``name``, at ``shape`` where the wrapper
+    gives one."""
+    LAUNCHES[name] += 1
+    if shape is not None:
+        key = (name, tuple(shape))
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -104,14 +119,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "march_pair_launch": ([_P] * 10 + [_I] * 9 + [_F] * 6 + [_I] * 4
+    "march_pair_launch": ([_P] * 10 + [_I] * 10 + [_F] * 6 + [_I] * 4
                           + [_F] * 2 + [_I] + [_P]),
-    "march_single_launch": ([_P] * 8 + [_I] * 9 + [_F] * 6 + [_I] * 2 + [_F]
+    "march_single_launch": ([_P] * 8 + [_I] * 10 + [_F] * 6 + [_I] * 2 + [_F]
                             + [_I] + [_P]),
     "shade_bounce_fwd_launch": [_P] * 8 + [_I] * 3 + [_P],
     "shade_bounce_bwd_launch": [_P] * 11 + [_I] * 3 + [_P],
     "row_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
-    "row_scatter_add_launch": [_P] * 3 + [_I] * 4 + [_P],
+    "row_scatter_add_launch": [_P] * 3 + [_I] * 6 + [_P],
+    "compact_sel_launch": [_P] * 4 + [_I] * 2 + [_P],
     "env_sample_dir_launch": [_P] * 7 + [_I] * 3 + [_P],
     "env_pdf_dir_launch": [_P] * 4 + [_I] * 3 + [_P],
     "env_lookup_bilinear_launch": [_P] * 6 + [_I] * 3 + [_P],

@@ -6,7 +6,10 @@ A′, ``march_single`` (one ray, with a ``shadow_only`` mode, replaces
 
 The plain version of each march is ``render/screenspace.py::march_mip``,
 as the JAX package's off-TPU path is. The tables and ``t_lo`` are
-computed here in torch; the kernels march one ray per thread.
+computed here in torch; the kernel takes a tile of 32 rays per warp, the
+lobe and the shadow march of a vertex as separate work items. The origin
+may be a broadcast over the leading (sample) axes: the kernel reads it
+with a period instead of a copy.
 """
 
 from __future__ import annotations
@@ -85,7 +88,15 @@ def march_pair_plain(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
     return hit, shad
 
 
+def _log2_exact(f: int, name: str) -> int:
+    """The kernel reaches a table cell by a shift."""
+    if f < 1 or f & (f - 1):
+        raise ValueError(f"{name} must be a power of two, got {f}")
+    return f.bit_length() - 1
+
+
 def _check_tables(tab: MarchTables, dev):
+    """(mip_shift, mh, mw, fine_shift, fh, fw) of the kernel call."""
     mh, mw = tab.mip.shape
     fh, fw = tab.fine.shape
     for name, t, shp in (("mip", tab.mip, (mh, mw)),
@@ -94,7 +105,19 @@ def _check_tables(tab: MarchTables, dev):
         _lib.expect(t, name, torch.float32, shp, dev)
     if mh * mw > 1024 or fh * fw > 4096:
         raise ValueError("march tables exceed the kernel's shared memory")
-    return mh, mw, fh, fw
+    return (_log2_exact(tab.mip_f, "mip_f"), mh, mw,
+            _log2_exact(tab.fine_f, "fine_f"), fh, fw)
+
+
+def _origin_rows(origin):
+    """origin (..., 3) as contiguous rows (R, 3) with flat ray q starting
+    at row q % R: a tensor expanded over its leading axes (the samples of
+    a pixel share their vertex) gives its one stored block, uncopied."""
+    lead = origin.dim() - 2
+    if lead > 0 and all(st == 0 or sz == 1 for st, sz in
+                        zip(origin.stride()[:lead], origin.shape[:lead])):
+        return origin[(0,) * lead].contiguous()
+    return origin.reshape(-1, 3).contiguous()
 
 
 def march_single(cam: Camera, tab: MarchTables, origin, direction,
@@ -115,12 +138,14 @@ def march_single(cam: Camera, tab: MarchTables, origin, direction,
                             fine_table=tab.fine, fine_factor=tab.fine_f)
     dev = origin.device
     shape = origin.shape[:-1]
-    o = origin.reshape(-1, 3).contiguous()
+    o = _origin_rows(origin)
     d = direction.reshape(-1, 3).contiguous()
-    m = o.shape[0]
-    _lib.expect(o, "origin", torch.float32, (m, 3), dev)
+    m = d.shape[0]
+    _lib.expect(o, "origin", torch.float32, (o.shape[0], 3), dev)
+    if m % o.shape[0]:
+        raise ValueError("origin does not broadcast over the rays")
     _lib.expect(d, "direction", torch.float32, (m, 3), dev)
-    mh, mw, fh, fw = _check_tables(tab, dev)
+    geo = _check_tables(tab, dev)
     hit = torch.empty((m,), dtype=torch.bool, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     t = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -129,12 +154,11 @@ def march_single(cam: Camera, tab: MarchTables, origin, direction,
         _lib.check(_lib.lib().march_single_launch(
             o.data_ptr(), d.data_ptr(), tab.mip.data_ptr(),
             tab.fine.data_ptr(), tab.t_lo.data_ptr(), hit.data_ptr(),
-            idx.data_ptr(), t.data_ptr(), m, cam.height, cam.width,
-            tab.mip_f, mh, mw, tab.fine_f, fh, fw, cam.focal, cam.cx, cam.cy,
-            1.0 - bias_frac, 1.0 + bias_frac, interval_frac, n_steps,
-            fine_steps, ratio, int(shadow_only), _lib.stream_ptr(o)),
-            "march_single")
-        _lib.LAUNCHES["march_single"] += 1
+            idx.data_ptr(), t.data_ptr(), m, o.shape[0], cam.height,
+            cam.width, *geo, cam.focal, cam.cx, cam.cy, 1.0 - bias_frac,
+            1.0 + bias_frac, interval_frac, n_steps, fine_steps, ratio,
+            int(shadow_only), _lib.stream_ptr(o)), "march_single")
+        _lib.count_launch("march_single", (m,))
     hit = hit.reshape(shape)
     return ss.Hit(hit, idx.reshape(shape), t.reshape(shape), ~hit)
 
@@ -153,14 +177,16 @@ def march_pair(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
                                 interval_frac)
     dev = origin.device
     shape = origin.shape[:-1]
-    o = origin.reshape(-1, 3).contiguous()
+    o = _origin_rows(origin)
     dl = d_lobe.reshape(-1, 3).contiguous()
     dn = d_nee.reshape(-1, 3).contiguous()
-    m = o.shape[0]
-    h, w = cam.height, cam.width
-    for name, t in (("origin", o), ("d_lobe", dl), ("d_nee", dn)):
+    m = dl.shape[0]
+    _lib.expect(o, "origin", torch.float32, (o.shape[0], 3), dev)
+    if m % o.shape[0]:
+        raise ValueError("origin does not broadcast over the rays")
+    for name, t in (("d_lobe", dl), ("d_nee", dn)):
         _lib.expect(t, name, torch.float32, (m, 3), dev)
-    mh, mw, fh, fw = _check_tables(tab, dev)
+    geo = _check_tables(tab, dev)
     hit = torch.empty((m,), dtype=torch.bool, device=dev)
     idx = torch.empty((m,), dtype=torch.int32, device=dev)
     t = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -171,13 +197,13 @@ def march_pair(cam: Camera, tab: MarchTables, origin, d_lobe, d_nee,
         _lib.check(_lib.lib().march_pair_launch(
             o.data_ptr(), dl.data_ptr(), dn.data_ptr(), tab.mip.data_ptr(),
             tab.fine.data_ptr(), tab.t_lo.data_ptr(), hit.data_ptr(),
-            idx.data_ptr(), t.data_ptr(), shad.data_ptr(), m, h, w,
-            tab.mip_f, mh, mw, tab.fine_f, fh, fw, cam.focal, cam.cx, cam.cy,
+            idx.data_ptr(), t.data_ptr(), shad.data_ptr(), m, o.shape[0],
+            cam.height, cam.width, *geo, cam.focal, cam.cx, cam.cy,
             1.0 - bias_frac, 1.0 + bias_frac, interval_frac, n_steps,
             fine_steps, shadow_steps, max(shadow_fine_steps, 1), ratio,
             s_ratio, int(shadow_fine_steps == 0), _lib.stream_ptr(o)),
             "march_pair")
-        _lib.LAUNCHES["march_pair"] += 1
+        _lib.count_launch("march_pair", (m,))
     hit = hit.reshape(shape)
     return (ss.Hit(hit, idx.reshape(shape), t.reshape(shape), ~hit),
             shad.reshape(shape))

@@ -5,16 +5,18 @@ reorders built from the two (counterpart of
 ``row_gather`` is kernel C and ``row_scatter_add`` kernel C′ of
 ``csrc/rowops.cu``. Their plain versions are indexing and, for the
 scatter, a stable sort with float64 prefix sums. On the card every call
-of either goes through its kernel, whatever the order of the indices: the
-JAX package's ``coherent`` flag chose between its span-binned kernel and
-XLA's gather, a choice this card does not need, so ``row_gather`` accepts
-the flag and it only documents that the caller's indices ascend.
+of either goes through its kernel, whatever the order of the indices.
+``coherent`` has the JAX package's meaning, the indices of the live rows
+ascend (padding rows carry zeros): ``row_gather`` accepts it and it only
+documents the caller's order, ``row_scatter_add`` takes its path without
+a match and, for rows no other lane shares, without atomics.
 
 The compaction helpers (``compact_sel``, ``gather_rows_coherent``,
-``gather_coherent_diff``, ``scatter_add_coherent_diff``) keep the live
-rays of a bounce as an ascending index vector, so the state of the next
-bounce is one gather and the radiance returns to its film slots by one
-scatter-add.
+``gather_coherent_diff``, ``scatter_add_coherent_diff``,
+``scatter_add_coherent_into``) keep the live rays of a bounce as an
+ascending index vector, so the state of the next bounce is one gather and
+the radiance returns to its film slots by one scatter-add.
+``compact_sel`` has a kernel of its own in ``csrc/rowops.cu``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def row_gather(table, idx, exact: bool = True, coherent: bool = False):
         _lib.check(_lib.lib().row_gather_launch(
             tf.data_ptr(), ix.data_ptr(), out.data_ptr(), m, k,
             0 if exact else 1, _lib.stream_ptr(tf)), "row_gather")
-        _lib.LAUNCHES["row_gather"] += 1
+        _lib.count_launch("row_gather", (n, k, m))
     return out.reshape(*idx.shape, k)
 
 
@@ -71,11 +73,17 @@ def row_scatter_add_plain(cot, idx, n_rows: int, exact: bool = True):
     return out
 
 
-def row_scatter_add(cot, idx, n_rows: int, exact: bool = True):
+def row_scatter_add(cot, idx, n_rows: int, exact: bool = True,
+                    coherent: bool = False, out=None):
     """Kernel C′: Σ over queries of cot rows at idx → (n_rows, K) f32.
-    ``exact=False`` rounds each contribution to bf16 before the sum."""
+    ``exact=False`` rounds each contribution to bf16 before the sum.
+    ``coherent=True``: the caller's indices ascend over the rows that are
+    not all zero (the padding rows of a compaction carry zeros and any
+    index). ``out``: a contiguous (n_rows, K) f32 table that the sums are
+    added to in place, instead of a new table of zeros; it is returned."""
     if cot.device.type == "cpu":
-        return row_scatter_add_plain(cot, idx, n_rows, exact)
+        res = row_scatter_add_plain(cot, idx, n_rows, exact)
+        return res if out is None else out.add_(res)
     dev = cot.device
     k = cot.shape[-1]
     cf = cot.reshape(-1, k).contiguous()
@@ -83,12 +91,24 @@ def row_scatter_add(cot, idx, n_rows: int, exact: bool = True):
     m = cf.shape[0]
     _lib.expect(cf, "cot", torch.float32, (m, k), dev)
     _lib.expect(ix, "idx", torch.int32, (m,), dev)
-    out = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    if out is None:
+        table = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    else:
+        table = out
+        _lib.expect(table, "out", torch.float32, (n_rows, k), dev)
     _lib.check(_lib.lib().row_scatter_add_launch(
-        cf.data_ptr(), ix.data_ptr(), out.data_ptr(), m, k, n_rows,
-        0 if exact else 1, _lib.stream_ptr(cf)), "row_scatter_add")
-    _lib.LAUNCHES["row_scatter_add" if exact else "row_scatter_add_bf16"] += 1
-    return out
+        cf.data_ptr(), ix.data_ptr(), table.data_ptr(), m, k, n_rows,
+        0 if exact else 1, int(coherent), int(out is not None),
+        _lib.stream_ptr(cf)), "row_scatter_add")
+    # counted by caller family; a coherent launch also says whether it
+    # added into a running table
+    if coherent:
+        _lib.count_launch("row_scatter_add_coherent",
+                          (m, k, n_rows, int(out is not None)))
+    else:
+        _lib.count_launch("row_scatter_add" if exact
+                          else "row_scatter_add_bf16", (m, k, n_rows))
+    return table
 
 
 class _RowGatherDiff(torch.autograd.Function):
@@ -143,23 +163,29 @@ def compact_sel(alive, cap: int):
     alive (M,) bool → (sel (cap,) int32 ascending, count int32 scalar
     tensor). sel[j] is the position of the j-th live ray for j < count and
     0 (padding) beyond; live rays past ``cap`` are dropped and the
-    estimator treats them as dead. The destination of a live ray is its
-    prefix count, so the compaction is one scatter-add (kernel C′) of the
-    positions, split into two f32-exact channels; dead rays add exact
-    zeros, which the kernel skips, and every slot receives at most one
-    value, so the result does not depend on the order of the atomic adds.
+    estimator treats them as dead. On the card it is the compaction
+    kernel of ``csrc/rowops.cu`` (a count pass and a write pass over
+    blocks of 4096 flags, positions written as integers, no atomics).
     ``count`` stays on the device: reading it would stall every chunk."""
-    m = alive.shape[0]
-    dest = torch.cumsum(alive.to(torch.int32), 0, dtype=torch.int32) - 1
-    count = torch.clamp_max(dest[-1] + 1, cap)
-    keep = alive & (dest < cap)
-    hi, lo = _f32_exact_split(torch.arange(m, dtype=torch.int32,
-                                           device=alive.device))
-    vals = torch.stack([torch.where(keep, hi, 0.0),
-                        torch.where(keep, lo, 0.0)], dim=-1)
-    packed = row_scatter_add(vals, torch.clamp(dest, 0, cap - 1), cap,
-                             exact=True)
-    return _f32_exact_join(packed[:, 0], packed[:, 1]), count
+    if alive.device.type == "cpu":
+        return compact_sel_plain(alive, cap)
+    dev = alive.device
+    flags = alive.reshape(-1).contiguous()
+    m = flags.shape[0]
+    _lib.expect(flags, "alive", torch.bool, (m,), dev)
+    if cap < 1:
+        raise ValueError(f"cap must be positive, got {cap}")
+    if m == 0:
+        return (torch.zeros((cap,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    sel = torch.empty((cap,), dtype=torch.int32, device=dev)
+    # count, then one count per block of 4096 flags (scratch)
+    work = torch.empty((1 + -(-m // 4096),), dtype=torch.int32, device=dev)
+    _lib.check(_lib.lib().compact_sel_launch(
+        flags.data_ptr(), sel.data_ptr(), work.data_ptr(),
+        work.data_ptr() + 4, m, cap, _lib.stream_ptr(flags)), "compact_sel")
+    _lib.count_launch("compact_sel", (m, cap))
+    return sel, work[0]
 
 
 def gather_rows_coherent(table, sel):
@@ -180,7 +206,7 @@ class _GatherCoherentDiff(torch.autograd.Function):
     def backward(ctx, cot):
         (sel,) = ctx.saved_tensors
         return row_scatter_add(cot.contiguous(), sel, ctx.n_rows,
-                               exact=True), None
+                               exact=True, coherent=True), None
 
 
 def gather_coherent_diff(table, sel):
@@ -193,7 +219,8 @@ class _ScatterAddCoherentDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, idx, n_rows):
         ctx.save_for_backward(idx)
-        return row_scatter_add(values.contiguous(), idx, n_rows, exact=True)
+        return row_scatter_add(values.contiguous(), idx, n_rows, exact=True,
+                               coherent=True)
 
     @staticmethod
     def backward(ctx, cot):
@@ -207,3 +234,27 @@ def scatter_add_coherent_diff(n_rows: int, values, idx):
     compaction): forward kernel C′, backward kernel C. Padding rows must
     carry zero values."""
     return _ScatterAddCoherentDiff.apply(values, idx, n_rows)
+
+
+class _ScatterAddCoherentInto(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.mark_dirty(acc)
+        return row_scatter_add(values.contiguous(), idx, acc.shape[0],
+                               exact=True, coherent=True, out=acc)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (idx,) = ctx.saved_tensors
+        return cot, row_gather(cot, idx, exact=True, coherent=True), None
+
+
+def scatter_add_coherent_into(acc, values, idx):
+    """``acc + scatter_add_coherent_diff(acc.shape[0], values, idx)``,
+    computed in place: the rows are added into the running (n_rows, K)
+    table ``acc``, which is returned (its earlier value is gone; nothing
+    of the backward pass needs it). Forward kernel C′ without a zeroed
+    table, backward kernel C for ``values`` and the identity for ``acc``.
+    ``acc`` must be contiguous float32 and no view of another tensor."""
+    return _ScatterAddCoherentInto.apply(acc, values, idx)

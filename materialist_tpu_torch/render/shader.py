@@ -34,7 +34,7 @@ from materialist_tpu_torch.ops.kernels import march as mk
 from materialist_tpu_torch.ops.kernels.gather import onehot_gather
 from materialist_tpu_torch.ops.kernels.rowops import (
     _f32_exact_join, _f32_exact_split, compact_sel, gather_coherent_diff,
-    gather_rows_coherent, row_gather, scatter_add_coherent_diff)
+    gather_rows_coherent, row_gather, scatter_add_coherent_into)
 from materialist_tpu_torch.ops.kernels.shadebounce import shade_bounce_fused
 from materialist_tpu_torch.render import bsdf as bsdf_mod
 from materialist_tpu_torch.render import screenspace as ss
@@ -572,10 +572,10 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
 
         if sel is not None:
             # contributions return to their film slots through a
-            # differentiable scatter-add (padding rows carry exact zeros:
-            # their gates are dead)
-            film_rad = film_rad + scatter_add_coherent_diff(
-                m0, contrib_b.reshape(-1, 3), film_pos)
+            # differentiable scatter-add into the running buffer, in place
+            # (padding rows carry exact zeros: their gates are dead)
+            film_rad = scatter_add_coherent_into(
+                film_rad, contrib_b.reshape(-1, 3), film_pos)
         else:
             radiance = radiance + contrib_b
         alive = alive & rec.hit

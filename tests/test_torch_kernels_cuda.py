@@ -173,3 +173,104 @@ def test_table_lookups(card, shape):
     if len(shape) == 2:
         assert torch.equal(vreg.vreg_gather(tab, idx),
                            vreg.vreg_gather_plain(tab, idx))
+
+
+@pytest.mark.parametrize("case", ["none_alive", "all_alive", "over_cap",
+                                  "ragged"])
+def test_compact_sel_edge_cases(card, case):
+    g = torch.Generator(device=card).manual_seed(7)
+    m, cap = {"none_alive": (20480, 1024), "all_alive": (20480, 20480),
+              "over_cap": (40960, 1024), "ragged": (30001, 20480)}[case]
+    alive = {"none_alive": torch.zeros(m, dtype=torch.bool, device=card),
+             "all_alive": torch.ones(m, dtype=torch.bool, device=card)}.get(
+                 case, torch.rand((m,), generator=g, device=card) < 0.5)
+    for flags in (alive, alive[3:]):       # the second: an unaligned start
+        sel, count = rowops.compact_sel(flags, cap)
+        sel_p, count_p = rowops.compact_sel_plain(flags, cap)
+        assert sel.dtype == torch.int32 and count.dtype == torch.int32
+        assert torch.equal(sel, sel_p) and int(count) == int(count_p)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [2, 3, 5, 8])
+@pytest.mark.parametrize("pattern", ["coherent", "skewed", "small_table"])
+def test_row_scatter_add_patterns(card, pattern, k, exact):
+    """Ascending live rows with zero padding at index 0; 95% of the rows
+    on one index; a table small enough for shared memory. Against the
+    plain version, within 1e-5 of the largest entry."""
+    g = torch.Generator(device=card).manual_seed(8 + k)
+    m, n_rows = 70001, (400 if pattern == "small_table" else 90000)
+    cot = torch.randn((m, k), generator=g, device=card)
+    if pattern == "coherent":
+        live = 50000
+        idx = torch.zeros((m,), dtype=torch.int32, device=card)
+        idx[:live] = torch.sort(torch.randperm(
+            n_rows, generator=g, device=card)[:live]).values.int()
+        cot[live:] = 0.0
+    else:
+        idx = torch.randint(0, n_rows, (m,), generator=g, device=card,
+                            dtype=torch.int32)
+        idx[torch.rand((m,), generator=g, device=card) < 0.95] = 7
+    got = rowops.row_scatter_add(cot, idx, n_rows, exact=exact,
+                                 coherent=pattern == "coherent")
+    ref = rowops.row_scatter_add_plain(cot, idx, n_rows, exact=exact)
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    if pattern == "coherent":
+        base = torch.randn((n_rows, k), generator=g, device=card)
+        acc = base.clone()
+        out = rowops.row_scatter_add(cot, idx, n_rows, exact=exact,
+                                     coherent=True, out=acc)
+        assert out.data_ptr() == acc.data_ptr()
+        torch.testing.assert_close(out, base + ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_scatter_add_coherent_into(card):
+    g = torch.Generator(device=card).manual_seed(9)
+    m0, cap = 50000, 20480
+    alive = torch.rand((m0,), generator=g, device=card) < 0.3
+    sel, count = rowops.compact_sel(alive, cap)
+    vals = torch.randn((cap, 3), generator=g, device=card)
+    vals[int(count):] = 0.0
+    vals.requires_grad_()
+    buf = torch.zeros((m0, 3), device=card)
+    buf = rowops.scatter_add_coherent_into(buf, vals, sel)
+    buf = rowops.scatter_add_coherent_into(buf, 2.0 * vals, sel)
+    cot = torch.randn((m0, 3), generator=g, device=card)
+    buf.backward(cot)
+    ref = rowops.row_scatter_add_plain(vals.detach(), sel, m0)
+    torch.testing.assert_close(buf.detach(), 3.0 * ref)
+    want = 3.0 * cot[sel.long()]
+    torch.testing.assert_close(vals.grad[:int(count)], want[:int(count)])
+
+
+def test_march_origin_broadcast(card, scene):
+    """A pixel's samples share their origin: the broadcast view and its
+    full copy give the same marches."""
+    cam, gb, _, env = scene
+    s, n = 3, cam.height * cam.width
+    tab = mk.march_tables(gb.dist, gb.valid)
+    k = rng.split(rng.key(11), 3)
+    dl = brdf.sample_dirs(rng.uniform(k[0], (s, n), card),
+                          rng.uniform(k[1], (s, n, 2), card),
+                          gb.wo.reshape(n, 3).expand(s, n, 3),
+                          gb.normal_geo.reshape(n, 3),
+                          torch.full((n, 1), 0.5, device=card))
+    dn, _ = em.sample_dir(em.build_sampler(env),
+                          rng.uniform(k[2], (s, n, 2), card))
+    o = gb.position.reshape(n, 3).expand(s, n, 3)
+    for kw in (dict(n_steps=24, fine_steps=6, shadow_steps=16,
+                    shadow_fine_steps=2),
+               dict(n_steps=12, fine_steps=3, shadow_steps=8,
+                    shadow_fine_steps=0)):
+        (ha, sa), (hb, sb_) = (mk.march_pair(cam, tab, x, dl, dn,
+                                             interval_frac=0.05, **kw)
+                               for x in (o, o.contiguous()))
+        assert torch.equal(ha.hit, hb.hit) and torch.equal(ha.idx, hb.idx)
+        assert torch.equal(ha.t, hb.t) and torch.equal(sa, sb_)
+        hp, sp = mk.march_pair_plain(cam, tab, o, dl, dn, t_min_frac=2e-3,
+                                     t_max_frac=3.0, bias_frac=4e-3,
+                                     interval_frac=0.05, **kw)
+        for a, b in ((ha.hit, hp.hit), (ha.idx, hp.idx), (sa, sp)):
+            assert float((a == b).float().mean()) >= 0.999

@@ -138,3 +138,115 @@ def test_row_gather_diff_matches_jax():
     ref = np.asarray(pull(jnp.asarray(_bf16(cot)))[0])
     np.testing.assert_allclose(tt.grad.numpy(), ref,
                                atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", ["none_alive", "all_alive", "over_cap",
+                                  "ragged"])
+def test_compact_sel_edge_cases_match_jax(case):
+    """None alive, all alive, more alive than the cap, and a ray count
+    that is no multiple of 1024 (nor of 16)."""
+    rng = np.random.default_rng(len(case))
+    m, cap = {"none_alive": (2048, 1024), "all_alive": (2048, 2048),
+              "over_cap": (4096, 1024), "ragged": (3001, 2048)}[case]
+    alive = {"none_alive": np.zeros(m, bool), "all_alive": np.ones(m, bool),
+             "over_cap": rng.uniform(size=m) < 0.6,
+             "ragged": rng.uniform(size=m) < 0.4}[case]
+    sel_j, count_j = jrow.compact_sel(jnp.asarray(alive), cap)
+    sel_t, count_t = trow.compact_sel(_t(alive), cap)
+    assert sel_t.dtype == torch.int32 and sel_t.shape == (cap,)
+    assert count_t.dtype == torch.int32 and count_t.shape == ()
+    np.testing.assert_array_equal(sel_t.numpy(), np.asarray(sel_j))
+    assert int(count_t) == int(count_j) == min(int(alive.sum()), cap)
+    if case == "over_cap":
+        assert int(alive.sum()) > cap
+
+
+def _scatter_inputs(pattern, k, seed):
+    """coherent: live rows at ascending unique indices, then zero padding
+    rows at index 0 (a compaction's scatter); skewed: 95% of the rows on
+    one index (a bounce whose misses all carry index 0)."""
+    rng = np.random.default_rng(seed)
+    m, n_rows = 3000, 5000
+    cot = rng.normal(size=(m, k)).astype(np.float32)
+    if pattern == "coherent":
+        live = 2100
+        idx = np.zeros(m, np.int32)
+        idx[:live] = np.sort(rng.permutation(n_rows)[:live])
+        cot[live:] = 0.0
+    else:
+        idx = np.where(rng.uniform(size=m) < 0.95, 7,
+                       rng.integers(0, n_rows, m)).astype(np.int32)
+    return cot, idx, n_rows
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("pattern", ["coherent", "skewed"])
+def test_row_scatter_add_matches_jax(pattern, k, exact):
+    """f32: within 1e-5 of the row maximum (another order of the sums);
+    bf16 payload: within 2^-8 of Σ|cot| of the rows that land on an entry
+    (each contribution rounds to 8 significant bits)."""
+    cot, idx, n_rows = _scatter_inputs(pattern, k, 10 * k + exact)
+    ref = np.asarray(jrow.row_scatter_add(jnp.asarray(cot), jnp.asarray(idx),
+                                          n_rows))
+    got = trow.row_scatter_add(_t(cot), _t(idx), n_rows, exact=exact,
+                               coherent=pattern == "coherent").numpy()
+    assert got.shape == (n_rows, k) and got.dtype == np.float32
+    if exact:
+        np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+    else:
+        mass = np.zeros((n_rows, k), np.float64)
+        np.add.at(mass, idx, np.abs(cot))
+        assert (np.abs(got - ref) <= 2.0 ** -8 * mass + 1e-6).all()
+        ref16 = np.asarray(jrow.row_scatter_add(
+            jnp.asarray(_bf16(cot)), jnp.asarray(idx), n_rows))
+        np.testing.assert_allclose(got, ref16,
+                                   atol=1e-5 * np.abs(ref16).max())
+
+
+def test_scatter_add_coherent_into_matches_jax():
+    """The film accumulation in place: value and gradients equal to the
+    JAX package's acc + scatter_add_coherent_diff(...)."""
+    rng = np.random.default_rng(5)
+    m0, cap = 4096, 1024
+    idx = _sel(rng, m0, cap, 900)
+    vals = rng.normal(size=(cap, 3)).astype(np.float32)
+    vals[900:] = 0.0
+    acc0 = rng.normal(size=(m0, 3)).astype(np.float32)
+    cot = rng.normal(size=(m0, 3)).astype(np.float32)
+    out_j, pull = jax.vjp(
+        lambda a, v: a + jrow.scatter_add_coherent_diff(m0, v,
+                                                        jnp.asarray(idx)),
+        jnp.asarray(acc0), jnp.asarray(vals))
+    a_leaf = _t(acc0).requires_grad_()
+    vt = _t(vals).requires_grad_()
+    acc = a_leaf * 1.0                      # the running buffer (no leaf)
+    out_t = trow.scatter_add_coherent_into(acc, vt, _t(idx))
+    assert out_t.data_ptr() == acc.data_ptr()      # added in place
+    out_t.backward(_t(cot))
+    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
+    ga, gv = pull(jnp.asarray(cot))
+    np.testing.assert_array_equal(a_leaf.grad.numpy(), np.asarray(ga))
+    np.testing.assert_array_equal(vt.grad.numpy(), np.asarray(gv))
+    # twice into one buffer, as two compacted bounces of a chunk do
+    buf = torch.zeros((m0, 3))
+    buf = trow.scatter_add_coherent_into(buf, vt.detach(), _t(idx))
+    buf = trow.scatter_add_coherent_into(buf, vt.detach(), _t(idx))
+    np.testing.assert_allclose(
+        buf.numpy(), 2 * np.asarray(jrow.scatter_add_coherent_diff(
+            m0, jnp.asarray(vals), jnp.asarray(idx))), rtol=1e-6)
+
+
+def test_launch_counts_by_shape():
+    from materialist_tpu_torch.ops.kernels import _lib
+    _lib.reset_launches()
+    _lib.count_launch("row_gather", (10, 3, 4))
+    _lib.count_launch("row_gather", (10, 3, 4))
+    _lib.count_launch("compact_sel", (8, 4))
+    _lib.count_launch("march_pair")
+    assert _lib.LAUNCHES["row_gather"] == 2
+    assert _lib.LAUNCHES["march_pair"] == 1
+    assert _lib.LAUNCHES_BY_SHAPE == {("row_gather", (10, 3, 4)): 2,
+                                      ("compact_sel", (8, 4)): 1}
+    _lib.reset_launches()
+    assert not _lib.LAUNCHES_BY_SHAPE and not any(_lib.LAUNCHES.values())
