@@ -857,11 +857,23 @@ def check_kernels(torch, _lib, caps, by_shape):
         cam_a, tab.dist, tab.valid, tab.mip, origin, d_lobe,
         mip_factor=tab.mip_f, fine_table=tab.fine, fine_factor=tab.fine_f,
         **skw), iters=3, warmup=1)
+    # the entry's time is the full march's: its bound counts the steps these
+    # rays need, as march_pair's does, one direction in, hit/idx/t out, the
+    # origin's stored rows (a broadcast over the samples) and the tables
+    steps = needed_march_steps(torch, cam_a, tab, origin, d_lobe,
+                               cfg.march_steps, cfg.fine_steps, False)
+    steps_so = needed_march_steps(torch, cam_a, tab, origin, d_lobe,
+                                  cfg.march_steps, cfg.fine_steps, True)
+    full = m * (cfg.march_steps + 2 * cfg.fine_steps)
+    log(f"    march_single steps needed {steps} of {full} (shadow_only: "
+        f"{steps_so} of {m * cfg.march_steps})")
     entry("march_single", "march_pair.cu", "march_kernel.py:250", all(oks),
           max(t_errs), times[False], pms,
-          m * (24 + 9) + 4 * (tab.mip.numel() + tab.fine.numel()),
-          m * (cfg.march_steps + 2 * cfg.fine_steps) * FLOPS_PER_MARCH_STEP,
-          path="nee_false", ms_shadow_only=times[True])
+          m * (12 + 9) + 12 * mk._origin_rows(origin).shape[0]
+          + 4 * (tab.mip.numel() + tab.fine.numel()),
+          steps * FLOPS_PER_MARCH_STEP, path="nee_false",
+          ms_shadow_only=times[True], steps_needed=steps, steps_full=full,
+          steps_needed_shadow_only=steps_so)
 
     # ---- F, G: lookups from the 128x128 mip and the 256x256 fine table
     # of the "mip" march at 512x512 (F: m lookups, one march step of a

@@ -270,10 +270,13 @@ int launch(const float* origin, int o_rows, const float* mip,
                                          ((g.fh * g.fw + 3) & ~3) +
                                          kWarps * kStage);
   // the persistent grid: as many blocks as the card holds at once
-  static int resident = 0, resident_smem = -1;
-  if (resident_smem != smem) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+  // (kept per calling thread for the device and table size it last saw)
+  static thread_local int resident = 0, resident_smem = -1, resident_dev = -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (resident_smem != smem || resident_dev != dev) {
+    int sms = 0, per_sm = 0;
+    resident_dev = dev;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
                                                   smem);

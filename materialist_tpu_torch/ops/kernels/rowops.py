@@ -215,27 +215,6 @@ def gather_coherent_diff(table, sel):
     return _GatherCoherentDiff.apply(table, sel)
 
 
-class _ScatterAddCoherentDiff(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, idx, n_rows):
-        ctx.save_for_backward(idx)
-        return row_scatter_add(values.contiguous(), idx, n_rows, exact=True,
-                               coherent=True)
-
-    @staticmethod
-    def backward(ctx, cot):
-        (idx,) = ctx.saved_tensors
-        return row_gather(cot, idx, exact=True, coherent=True), None, None
-
-
-def scatter_add_coherent_diff(n_rows: int, values, idx):
-    """Differentiable scatter-add of ``values`` rows into an (n_rows, K)
-    zero table at ascending idx (the film accumulation across a
-    compaction): forward kernel C′, backward kernel C. Padding rows must
-    carry zero values."""
-    return _ScatterAddCoherentDiff.apply(values, idx, n_rows)
-
-
 class _ScatterAddCoherentInto(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acc, values, idx):
@@ -251,10 +230,19 @@ class _ScatterAddCoherentInto(torch.autograd.Function):
 
 
 def scatter_add_coherent_into(acc, values, idx):
-    """``acc + scatter_add_coherent_diff(acc.shape[0], values, idx)``,
+    """``acc`` plus the rows of ``values`` summed at ascending idx,
     computed in place: the rows are added into the running (n_rows, K)
     table ``acc``, which is returned (its earlier value is gone; nothing
     of the backward pass needs it). Forward kernel C′ without a zeroed
     table, backward kernel C for ``values`` and the identity for ``acc``.
     ``acc`` must be contiguous float32 and no view of another tensor."""
     return _ScatterAddCoherentInto.apply(acc, values, idx)
+
+
+def scatter_add_coherent_diff(n_rows: int, values, idx):
+    """Differentiable scatter-add of ``values`` rows into an (n_rows, K)
+    zero table at ascending idx: ``scatter_add_coherent_into`` on a fresh
+    table. Padding rows must carry zero values."""
+    acc = torch.zeros((n_rows, values.shape[-1]), dtype=torch.float32,
+                      device=values.device)
+    return scatter_add_coherent_into(acc, values, idx)

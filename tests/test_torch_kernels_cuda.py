@@ -19,6 +19,7 @@ from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
 from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render import shader
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
+from torch_march_rays import MARCH_CASES, march_case_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -274,3 +275,24 @@ def test_march_origin_broadcast(card, scene):
                                      interval_frac=0.05, **kw)
         for a, b in ((ha.hit, hp.hit), (ha.idx, hp.idx), (sa, sp)):
             assert float((a == b).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("case,shadow_only", MARCH_CASES)
+def test_march_exits_and_shifts_on_the_card(card, case, shadow_only):
+    """The compiled kernel on the rays of the CPU test of the same cases
+    (frustum exits, two rising edges, shadow_only, negative pixels): hit
+    and idx equal to march_mip on the CPU on every ray, t within 1e-6 + two
+    parts in 1e7 of t (an ulp of the largest t is above 1e-6)."""
+    cam, tab, o, d, n_steps, fine_steps = march_case_inputs(case, shadow_only)
+    kw = dict(n_steps=n_steps, fine_steps=fine_steps, interval_frac=0.05,
+              shadow_only=shadow_only)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    ref = ss.march_mip(cam, tab.dist, tab.valid, tab.mip, o, d,
+                       mip_factor=tab.mip_f, fine_table=tab.fine,
+                       fine_factor=tab.fine_f, **kw)
+    on_card = type(tab)(*[x.to(card) if torch.is_tensor(x) else x
+                          for x in tab])
+    got = mk.march_single(cam, on_card, o.to(card), d.to(card), **kw)
+    assert torch.equal(got.hit.cpu(), ref.hit)
+    assert torch.equal(got.idx.cpu(), ref.idx)
+    torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-7, atol=1e-6)
