@@ -10,14 +10,38 @@
 // writes 4-16; the tables (<= 2*64 + 2*64*64 floats, or a 64x64x3 emitter)
 // are tiny. The TPU kernels resolved table reads with composed vreg
 // gathers over (8,128) planes; here every block stages its tables in
-// shared memory once, one thread handles one query (grid-stride), and the
-// table reads are shared-memory loads. sin/cos/acos/atan2 are the
-// full-precision device functions. The float operations follow the plain
-// PyTorch versions (ops/kernels/envkernels.py), which follow
-// materialist_tpu/ops/envmap.py.
+// shared memory once and the table reads are shared-memory loads. The
+// float operations follow the plain PyTorch versions
+// (ops/kernels/envkernels.py), which follow materialist_tpu/ops/envmap.py.
+//
+// env_sample_dir moves 24 bytes a query but also runs some 150
+// instructions for it (two searches, five divisions, two sincosf), so on
+// this card its instruction stream costs about as much as its bytes. Its
+// design:
+//  - a grid of at most kSampleBlocksPerSm blocks per SM; a block walks
+//    tiles of kThreads * kQ queries, and its tables come once, by
+//    cp.async, while the first tile's uniforms are already being loaded;
+//  - a thread holds kQ queries in flight, a block's width apart, each
+//    loaded as one float2, and the next tile's are fetched before this
+//    tile's are worked on. kQ is 4 where that still leaves every SM a
+//    block, else 2 or 1: a small launch is a matter of latency, and more,
+//    shorter threads end sooner, while every block pays for its tables;
+//  - row and column come from a branch-free lower bound whose trip count
+//    depends on the table size alone, so the kQ searches of a thread run
+//    in lockstep and their shared-memory reads overlap. The CDFs are
+//    running sums of positive terms (the sampler floors every texel at 1%
+//    of the mean), hence strictly increasing, and the lower bound is the
+//    count of entries below the uniform, which the plain version takes;
+//  - conditional rows lie an odd number of floats apart, so lanes that
+//    search different rows at the same column hit different banks;
+//  - a warp writes its 32 directions through a 96-float stage as three
+//    whole 128-byte lines instead of 96 stores 12 bytes apart.
+// env_pdf_dir and env_lookup_bilinear keep one query per thread.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -25,72 +49,163 @@ constexpr float kPi = 3.14159265358979323846f;      // f32(pi)
 constexpr float kTwoPi = 6.28318530717958647692f;   // f32(2 pi)
 constexpr float kTwoPi2 = 19.7392088021787172f;     // f32(2 pi^2)
 constexpr int kThreads = 256;
+constexpr int kQMax = 4;                  // queries a thread has in flight
+constexpr int kSampleBlocksPerSm = 4;
 
 __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.f), 1.f);
 }
 
-__global__ void env_sample_dir_kernel(const float* __restrict__ m_cdf,
-                                      const float* __restrict__ m_pdf,
-                                      const float* __restrict__ c_cdf,
-                                      const float* __restrict__ c_pdf,
-                                      const float* __restrict__ u2,
-                                      float* __restrict__ wi,
-                                      float* __restrict__ pdf, int m, int h,
-                                      int w) {
+// `rows` rows of `w` floats into shared memory, `stride` floats apart,
+// by 4-byte cp.async (any alignment, any stride).
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int rows, int w, int stride) {
+  for (int i = threadIdx.x; i < rows * w; i += kThreads) {
+    const int r = i / w;
+    __pipeline_memcpy_async(dst + r * stride + (i - r * w), src + i, 4);
+  }
+}
+
+// The uniforms of one tile: query (tile * kQ + j) * kThreads + thread.
+template <int kQ>
+__device__ __forceinline__ void load_tile(const float* __restrict__ u2,
+                                          int tile, int m, int vec,
+                                          float2 (&x)[kQ]) {
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const int q = (tile * kQ + j) * kThreads + threadIdx.x;
+    if (q >= m) {
+      x[j] = make_float2(0.5f, 0.5f);
+    } else if (vec) {
+      x[j] = __ldg(reinterpret_cast<const float2*>(u2) + q);
+    } else {
+      x[j] = make_float2(__ldg(u2 + 2 * (size_t)q),
+                         __ldg(u2 + 2 * (size_t)q + 1));
+    }
+  }
+}
+
+// lo[j] = number of entries of the ascending base[j][0..n) below x[j]. The
+// trip count depends on n alone, so the kQ searches advance together.
+template <int kQ>
+__device__ __forceinline__ void lower_bounds(const float* (&base)[kQ],
+                                             const float (&x)[kQ], int n,
+                                             int (&lo)[kQ]) {
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) lo[j] = 0;
+  while (n > 1) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+      lo[j] = (base[j][lo[j] + half - 1] < x[j]) ? lo[j] + half : lo[j];
+    n -= half;
+  }
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) lo[j] += (base[j][lo[j]] < x[j]) ? 1 : 0;
+}
+
+// inv_h, inv_w: 1/h, 1/w where that is a power of two (the division is then
+// a multiplication, with the same result), else 0. texel: (m, 2) int32 row
+// and column of every query, or null.
+template <int kQ>
+__global__ void __launch_bounds__(kThreads, kSampleBlocksPerSm)
+env_sample_dir_kernel(const float* __restrict__ m_cdf,
+                      const float* __restrict__ m_pdf,
+                      const float* __restrict__ c_cdf,
+                      const float* __restrict__ c_pdf,
+                      const float* __restrict__ u2, float* __restrict__ wi,
+                      float* __restrict__ pdf, int* __restrict__ texel, int m,
+                      int h, int w, int vec, float inv_h, float inv_w) {
   extern __shared__ float sm[];
+  const int ws = w | 1;
   float* s_mcdf = sm;
   float* s_mpdf = s_mcdf + h;
   float* s_ccdf = s_mpdf + h;
-  float* s_cpdf = s_ccdf + h * w;
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    s_mcdf[i] = m_cdf[i];
-    s_mpdf[i] = m_pdf[i];
-  }
-  for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
-    s_ccdf[i] = c_cdf[i];
-    s_cpdf[i] = c_pdf[i];
-  }
+  float* s_cpdf = s_ccdf + h * ws;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* stage = s_cpdf + h * ws + warp * 96;
+  stage_rows(s_mcdf, m_cdf, 1, h, h);
+  stage_rows(s_mpdf, m_pdf, 1, h, h);
+  stage_rows(s_ccdf, c_cdf, h, w, ws);
+  stage_rows(s_cpdf, c_pdf, h, w, ws);
+  __pipeline_commit();
+  constexpr int kTile = kThreads * kQ;
+  const int n_tiles = (m + kTile - 1) / kTile;
+  int tile = blockIdx.x;
+  float2 cur[kQ];
+  load_tile(u2, tile, m, vec, cur);
+  __pipeline_wait_prior(0);
   __syncthreads();
-  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < m;
-       q += gridDim.x * blockDim.x) {
-    const float x0 = u2[2 * q];
-    const float x1 = u2[2 * q + 1];
-    // marginal row: count of CDF entries below x0
-    int cnt = 0;
-    for (int r = 0; r < h; ++r) cnt += (s_mcdf[r] < x0) ? 1 : 0;
-    const int v = min(cnt, h - 1);
-    const float at_m = s_mcdf[v];
-    const float prev_m = v > 0 ? s_mcdf[v - 1] : 0.f;
-    const float pdf_m = s_mpdf[v];
-    const float dv = clip01((x0 - prev_m) / fmaxf(at_m - prev_m, 1e-12f));
-    // conditional column: lower bound over the row's CDF
-    const float* row = s_ccdf + v * w;
-    int lo = 0, size = w;
-    while (size > 0) {
-      const int half = size / 2;
-      const int mid = lo + half;
-      if (row[mid] < x1) {
-        lo = mid + 1;
-        size = size - half - 1;
-      } else {
-        size = half;
+  const float hw = (float)(h * w), hf = (float)h, wf = (float)w;
+  for (; tile < n_tiles; tile += gridDim.x) {
+    float2 nxt[kQ];
+    if (tile + (int)gridDim.x < n_tiles) {
+      load_tile(u2, tile + gridDim.x, m, vec, nxt);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) nxt[j] = make_float2(0.5f, 0.5f);
+    }
+    float x0[kQ], x1[kQ];
+    const float* base[kQ];
+    int v[kQ], u[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      x0[j] = cur[j].x;
+      x1[j] = cur[j].y;
+      base[j] = s_mcdf;
+    }
+    lower_bounds(base, x0, h, v);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      v[j] = min(v[j], h - 1);
+      base[j] = s_ccdf + v[j] * ws;
+    }
+    lower_bounds(base, x1, w, u);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int vj = v[j], uj = min(u[j], w - 1);
+      const float at_m = s_mcdf[vj];
+      const float prev_m = vj > 0 ? s_mcdf[vj - 1] : 0.f;
+      const float pdf_m = s_mpdf[vj];
+      const float dv =
+          clip01((x0[j] - prev_m) / fmaxf(at_m - prev_m, 1e-12f));
+      const float* row = base[j];
+      const float at_c = row[uj];
+      const float prev_c = uj > 0 ? row[uj - 1] : 0.f;
+      const float du =
+          clip01((x1[j] - prev_c) / fmaxf(at_c - prev_c, 1e-12f));
+      const float pdf_c = s_cpdf[vj * ws + uj];
+      const float uu = (float)uj + du;
+      const float vv = (float)vj + dv;
+      const float pn = kTwoPi * uu, tn = kPi * vv;
+      const float phi = inv_w > 0.f ? pn * inv_w : pn / wf;
+      const float theta = inv_h > 0.f ? tn * inv_h : tn / hf;
+      float st, ct, sp, cp;
+      sincosf(theta, &st, &ct);
+      sincosf(phi, &sp, &cp);
+      const int q0 = (tile * kQ + j) * kThreads + warp * 32;  // the warp's
+      const int q = q0 + lane;
+      __syncwarp();
+      stage[3 * lane] = st * sp;
+      stage[3 * lane + 1] = ct;
+      stage[3 * lane + 2] = -st * cp;
+      __syncwarp();
+      const size_t f0 = 3 * (size_t)q0, f_end = 3 * (size_t)m;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const size_t f = f0 + 32 * c + lane;
+        if (f < f_end) wi[f] = stage[32 * c + lane];
+      }
+      if (q < m) {
+        pdf[q] = (hw * (pdf_c * pdf_m)) / (kTwoPi2 * fmaxf(st, 1e-6f));
+        if (texel) {
+          texel[2 * (size_t)q] = vj;
+          texel[2 * (size_t)q + 1] = uj;
+        }
       }
     }
-    const int u = min(lo, w - 1);
-    const float at_c = row[u];
-    const float prev_c = u > 0 ? row[u - 1] : 0.f;
-    const float du = clip01((x1 - prev_c) / fmaxf(at_c - prev_c, 1e-12f));
-    const float pdf_c = s_cpdf[v * w + u];
-    const float uu = (float)u + du;
-    const float vv = (float)v + dv;
-    const float phi = kTwoPi * uu / (float)w;
-    const float theta = kPi * vv / (float)h;
-    const float st = sinf(theta);
-    wi[3 * q] = st * sinf(phi);
-    wi[3 * q + 1] = cosf(theta);
-    wi[3 * q + 2] = -st * cosf(phi);
-    pdf[q] = ((float)(h * w) * (pdf_c * pdf_m)) / (kTwoPi2 * fmaxf(st, 1e-6f));
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) cur[j] = nxt[j];
   }
 }
 
@@ -163,14 +278,41 @@ int grid_for(int m) {
 
 }  // namespace
 
+// texel: null, or (m, 2) int32 for the row and column of every query.
 extern "C" int env_sample_dir_launch(const float* m_cdf, const float* m_pdf,
                                      const float* c_cdf, const float* c_pdf,
                                      const float* u2, float* wi, float* pdf,
-                                     int m, int h, int w,
+                                     int* texel, int m, int h, int w,
                                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * h + 2 * h * w);
-  env_sample_dir_kernel<<<grid_for(m), kThreads, smem, stream>>>(
-      m_cdf, m_pdf, c_cdf, c_pdf, u2, wi, pdf, m, h, w);
+  const int ws = w | 1;
+  const size_t smem =
+      sizeof(float) * (2 * h + 2 * h * ws + (kThreads / 32) * 96);
+  // at most kSampleBlocksPerSm blocks on every SM (the count is kept per
+  // calling thread for the device it last saw)
+  static thread_local int resident = 0, resident_dev = -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (resident_dev != dev) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident = (sms < 1 ? 1 : sms) * kSampleBlocksPerSm;
+    resident_dev = dev;
+  }
+  int q = kQMax;
+  while (q > 1 && (m + kThreads * q - 1) / (kThreads * q) <
+                      resident / kSampleBlocksPerSm)
+    q >>= 1;
+  int grid = (m + kThreads * q - 1) / (kThreads * q);
+  grid = grid < 1 ? 1 : (grid > resident ? resident : grid);
+  const int vec = (reinterpret_cast<uintptr_t>(u2) & 7) == 0;
+  const float inv_h = (h & (h - 1)) == 0 ? 1.f / (float)h : 0.f;
+  const float inv_w = (w & (w - 1)) == 0 ? 1.f / (float)w : 0.f;
+  auto kern = q == 4   ? env_sample_dir_kernel<4>
+              : q == 2 ? env_sample_dir_kernel<2>
+                       : env_sample_dir_kernel<1>;
+  kern<<<grid, kThreads, smem, stream>>>(m_cdf, m_pdf, c_cdf, c_pdf, u2, wi,
+                                         pdf, texel, m, h, w, vec, inv_h,
+                                         inv_w);
   return (int)cudaGetLastError();
 }
 

@@ -378,12 +378,17 @@ extern "C" int row_gather_launch(const float* table, const int* idx,
                                  cudaStream_t stream) {
   const long long n = (long long)m * k;
   if (n <= 0) return 0;
-  switch (k) {  // the tracer's widths: film/throughput, draws, pack, side
+  // the tracer's widths: film/throughput, draws, pack, material rows, the
+  // side table of the standard material (13) and of the transparent one
+  // (15 + 5); any other width, the transparent table's own 15 among them,
+  // takes the run-time-width route
+  switch (k) {
     case 3: return gather_launch<3>(table, idx, out, n, k, bf16, stream);
     case 5: return gather_launch<5>(table, idx, out, n, k, bf16, stream);
     case 6: return gather_launch<6>(table, idx, out, n, k, bf16, stream);
     case 8: return gather_launch<8>(table, idx, out, n, k, bf16, stream);
     case 13: return gather_launch<13>(table, idx, out, n, k, bf16, stream);
+    case 20: return gather_launch<20>(table, idx, out, n, k, bf16, stream);
     default: return gather_launch<0>(table, idx, out, n, k, bf16, stream);
   }
 }

@@ -192,3 +192,10 @@ def pdf_dir(sampler, d):
     sin_theta = torch.clamp_min(torch.sin(theta), 1e-6)
     pm = sampler.pmass.reshape(-1)[vi * w + ui]
     return ((h * w) * pm / (2.0 * PI * PI * sin_theta))[..., None]
+
+
+def rotate(envmap, angle_degrees: float):
+    """Roll the envmap columns (the rolling relight)."""
+    w = envmap.shape[1]
+    shift = int(round(angle_degrees / 360.0 * w))
+    return torch.roll(envmap, shift, dims=1)

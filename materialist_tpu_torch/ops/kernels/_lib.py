@@ -36,11 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {name: 0 for name in (
     "march_pair", "march_single", "shade_bounce_fwd", "shade_bounce_bwd",
     "row_gather", "row_scatter_add", "row_scatter_add_bf16",
-    "row_scatter_add_coherent", "compact_sel", "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear", "onehot_gather",
-    "vreg_gather")}
+    "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
+    "env_pdf_dir", "env_lookup_bilinear", "onehot_gather", "vreg_gather")}
 
-# (name, shape tuple) -> launches; the wrappers of the march, the row
-# gather, the row scatter-add and compact_sel say what the shape lists
+# (name, shape tuple) -> launches; each wrapper says what its shape lists
 LAUNCHES_BY_SHAPE = {}
 
 _lock = threading.Lock()
@@ -128,7 +127,7 @@ _SIGNATURES = {
     "row_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     "row_scatter_add_launch": [_P] * 3 + [_I] * 6 + [_P],
     "compact_sel_launch": [_P] * 4 + [_I] * 2 + [_P],
-    "env_sample_dir_launch": [_P] * 7 + [_I] * 3 + [_P],
+    "env_sample_dir_launch": [_P] * 8 + [_I] * 3 + [_P],
     "env_pdf_dir_launch": [_P] * 4 + [_I] * 3 + [_P],
     "env_lookup_bilinear_launch": [_P] * 6 + [_I] * 3 + [_P],
     "onehot_gather_launch": [_P] * 3 + [_I] * 2 + [_P],

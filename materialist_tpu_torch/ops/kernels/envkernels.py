@@ -18,6 +18,7 @@ import torch
 from materialist_tpu_torch.ops.kernels import _lib
 
 PI = math.pi
+ENV_AXIS_MAX = 64     # the kernels keep their tables in shared memory
 
 
 # ---------------------------------------------------------------- plain
@@ -33,6 +34,17 @@ def uv_to_dir(u, v, height: int, width: int):
     st = torch.sin(theta)
     return torch.stack([st * torch.sin(phi), torch.cos(theta),
                         -st * torch.cos(phi)], dim=-1)
+
+
+def env_sample_texels_plain(m_cdf, c_cdf, u2):
+    """Row and column (..., 2) int64 that ``env_sample_dir_plain`` picks
+    for uniforms u2 (..., 2): the counts of CDF entries below them."""
+    h, w = c_cdf.shape
+    x0, x1 = u2[..., 0], u2[..., 1]
+    v_idx = torch.clamp(torch.sum(m_cdf < x0[..., None], -1), 0, h - 1)
+    u_idx = torch.clamp(torch.sum(c_cdf[v_idx] < x1[..., None], -1), 0,
+                        w - 1)
+    return torch.stack([v_idx, u_idx], -1)
 
 
 def env_sample_dir_plain(m_cdf, m_pdf, c_cdf, c_pdf, u2):
@@ -96,29 +108,54 @@ def env_lookup_bilinear_plain(env, u0i, v0i, du, dv):
 
 # -------------------------------------------------------------- kernels
 
-def env_sample_dir(m_cdf, m_pdf, c_cdf, c_pdf, u2):
-    """Kernel D: NEE sample (wi (..., 3), pdf (..., 1)) from uniforms
-    u2 (..., 2) under the (H, W) conditional / (H,) marginal tables."""
-    if u2.device.type == "cpu":
-        return env_sample_dir_plain(m_cdf, m_pdf, c_cdf, c_pdf, u2)
+def _launch_env_sample(m_cdf, m_pdf, c_cdf, c_pdf, u2, want_texels):
+    """Check the arguments and launch kernel D: (wi (m, 3), pdf (m,),
+    texels (m, 2) int32 or None) for the flattened queries."""
     h, w = c_cdf.shape
     dev = u2.device
-    shape = u2.shape[:-1]
     u2f = u2.reshape(-1, 2).contiguous()
     m = u2f.shape[0]
     for name, t, shp in (("m_cdf", m_cdf, (h,)), ("m_pdf", m_pdf, (h,)),
                          ("c_cdf", c_cdf, (h, w)), ("c_pdf", c_pdf, (h, w)),
                          ("u2", u2f, (m, 2))):
         _lib.expect(t, name, torch.float32, shp, dev)
+    if h > ENV_AXIS_MAX or w > ENV_AXIS_MAX:
+        raise ValueError(f"env_sample_dir: tables of {h}x{w}, at most "
+                         f"{ENV_AXIS_MAX} a side")
     wi = torch.empty((m, 3), dtype=torch.float32, device=dev)
     pdf = torch.empty((m,), dtype=torch.float32, device=dev)
+    tex = (torch.empty((m, 2), dtype=torch.int32, device=dev)
+           if want_texels else None)
     if m:
         _lib.check(_lib.lib().env_sample_dir_launch(
             m_cdf.data_ptr(), m_pdf.data_ptr(), c_cdf.data_ptr(),
             c_pdf.data_ptr(), u2f.data_ptr(), wi.data_ptr(), pdf.data_ptr(),
-            m, h, w, _lib.stream_ptr(u2f)), "env_sample_dir")
-        _lib.LAUNCHES["env_sample_dir"] += 1
+            tex.data_ptr() if want_texels else None, m, h, w,
+            _lib.stream_ptr(u2f)), "env_sample_dir")
+        _lib.count_launch("env_sample_dir", (m, h, w))
+    return wi, pdf, tex
+
+
+def env_sample_dir(m_cdf, m_pdf, c_cdf, c_pdf, u2):
+    """Kernel D: NEE sample (wi (..., 3), pdf (..., 1)) from uniforms
+    u2 (..., 2) under the (H, W) conditional / (H,) marginal tables, whose
+    CDFs must ascend strictly (``ops.envmap.build_sampler`` floors every
+    texel's weight, so its tables do)."""
+    if u2.device.type == "cpu":
+        return env_sample_dir_plain(m_cdf, m_pdf, c_cdf, c_pdf, u2)
+    shape = u2.shape[:-1]
+    wi, pdf, _ = _launch_env_sample(m_cdf, m_pdf, c_cdf, c_pdf, u2, False)
     return wi.reshape(*shape, 3), pdf.reshape(*shape, 1)
+
+
+def env_sample_texels(m_cdf, m_pdf, c_cdf, c_pdf, u2):
+    """Row and column (..., 2) that kernel D picks for uniforms u2: the
+    same launch as ``env_sample_dir`` with the texel output switched on,
+    for holding the searches against ``env_sample_texels_plain``."""
+    if u2.device.type == "cpu":
+        return env_sample_texels_plain(m_cdf, c_cdf, u2)
+    _, _, tex = _launch_env_sample(m_cdf, m_pdf, c_cdf, c_pdf, u2, True)
+    return tex.reshape(*u2.shape[:-1], 2).long()
 
 
 def env_pdf_dir(m_pdf, c_pdf, d):
@@ -138,7 +175,7 @@ def env_pdf_dir(m_pdf, c_pdf, d):
         _lib.check(_lib.lib().env_pdf_dir_launch(
             m_pdf.data_ptr(), c_pdf.data_ptr(), df.data_ptr(),
             pdf.data_ptr(), m, h, w, _lib.stream_ptr(df)), "env_pdf_dir")
-        _lib.LAUNCHES["env_pdf_dir"] += 1
+        _lib.count_launch("env_pdf_dir", (m, h, w))
     return pdf.reshape(*shape, 1)
 
 
@@ -162,5 +199,5 @@ def env_lookup_bilinear(env, u0i, v0i, du, dv):
         _lib.check(_lib.lib().env_lookup_bilinear_launch(
             env.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(),
             m, h, w, _lib.stream_ptr(env)), "env_lookup_bilinear")
-        _lib.LAUNCHES["env_lookup_bilinear"] += 1
+        _lib.count_launch("env_lookup_bilinear", (m, h, w))
     return out.reshape(*shape, 3)

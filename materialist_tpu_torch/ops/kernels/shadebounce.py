@@ -242,7 +242,7 @@ def shade_bounce_fwd(env, blob, thr, nrmf, auxf, recb):
             auxf.data_ptr(), recb.data_ptr(), thr_out.data_ptr(),
             rad.data_ptr(), m, h, w, _lib.stream_ptr(blob)),
             "shade_bounce_fwd")
-        _lib.LAUNCHES["shade_bounce_fwd"] += 1
+        _lib.count_launch("shade_bounce_fwd", (m, h, w))
     return thr_out, rad
 
 
@@ -265,7 +265,7 @@ def shade_bounce_bwd(env, blob, thr, nrmf, auxf, recb, ct_thr, ct_rad):
             ct_rad.data_ptr(), d_blob.data_ptr(), d_thr.data_ptr(),
             d_le.data_ptr(), m, h, w, _lib.stream_ptr(blob)),
             "shade_bounce_bwd")
-        _lib.LAUNCHES["shade_bounce_bwd"] += 1
+        _lib.count_launch("shade_bounce_bwd", (m, h, w))
     return d_blob, d_thr, d_le
 
 

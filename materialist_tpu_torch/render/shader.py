@@ -17,8 +17,9 @@ gradient reaches the material maps and the envmap only. The estimator's
 draws come from the threefry keys of ``materialist_tpu_torch.rng`` and
 are the JAX package's draws for the same key.
 
-Not ported yet: the "exact" march implementation and px-sharded film
-slices.
+``march_impl="exact"`` marches the full-resolution depth map in plain
+tensor code (``screenspace.march``), as the JAX package does outside any
+kernel. Not ported yet: px-sharded film slices.
 """
 
 from __future__ import annotations
@@ -93,10 +94,10 @@ class BounceRecord(NamedTuple):
 
 
 def _check_cfg(cfg: RenderConfig) -> None:
-    if cfg.march_impl not in ("fused", "mip"):
-        raise NotImplementedError(
-            f"march_impl={cfg.march_impl!r} is not ported yet (only "
-            "'fused' and 'mip' are): ROADMAP queue 1")
+    if cfg.march_impl not in ("fused", "mip", "exact"):
+        raise ValueError(
+            f"march_impl={cfg.march_impl!r}: expected 'fused', 'mip' or "
+            "'exact'")
 
 
 def _normalize9(v):
@@ -235,7 +236,8 @@ def _fused_shade_eligible(cfg: RenderConfig, bsdf, envmap) -> bool:
 
 def march_tables(cfg: RenderConfig, gbuf: GBuffer):
     """March tables of the scene geometry (shared by every chunk): the
-    march kernels' own factors for "fused", the config's for "mip"."""
+    march kernels' own factors for "fused", the config's for "mip";
+    "exact" reads only their depth and validity maps."""
     _check_cfg(cfg)
     if cfg.march_impl == "mip":
         return mk.march_tables(*_march_geometry(cfg, gbuf),
@@ -261,6 +263,20 @@ def _make_march_fns(cfg: RenderConfig, cam: Camera, tables):
                                  shadow_steps=cfg.shadow_steps,
                                  shadow_fine_steps=cfg.shadow_fine_steps,
                                  **kw)
+        return do_march, do_pair
+
+    if cfg.march_impl == "exact":
+        def do_march(pos, wi):
+            return ss.march(cam, tables.dist, tables.valid, pos, wi,
+                            n_steps=cfg.march_steps,
+                            vectorized=cfg.march_vectorized,
+                            interval_frac=cfg.march_interval_frac)
+
+        def do_pair(pos, wi, wi_e):
+            return do_march(pos, wi), ss.occluded(
+                cam, tables.dist, tables.valid, pos, wi_e,
+                n_steps=cfg.shadow_steps, vectorized=cfg.march_vectorized,
+                interval_frac=cfg.march_interval_frac)
         return do_march, do_pair
 
     def mip_march(pos, d, n_steps, fine_steps, shadow_only=False):
@@ -664,11 +680,21 @@ def shade_from_records(key, records, cfg: RenderConfig, cam: Camera,
 
 def render_with_bsdf(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
                      mats: Materials, envmap, bsdf=None, keys=None):
-    """Trace then shade with an arbitrary BSDF closure set."""
-    records = trace_step_records(key, cfg, cam, gbuf, mats, envmap, bsdf,
-                                 keys)
-    return shade_from_records(key, records, cfg, cam, gbuf, mats, envmap,
-                              bsdf, keys)
+    """Trace then shade with an arbitrary BSDF closure set, chunk by
+    chunk: a chunk's records are dropped after its shade unless the graph
+    of a differentiable render holds on to them."""
+    n_chunks = n_chunks_of(cfg)
+    if keys is None:
+        keys = rng.split(key, n_chunks)
+    tables = march_tables(cfg, gbuf)
+    total = None
+    for i in range(n_chunks):
+        records = _trace_chunk_paths(keys[i], cfg, cam, gbuf, mats, envmap,
+                                     bsdf, tables)
+        img = _shade_chunk(keys[i], records, cfg, cam, gbuf, mats, envmap,
+                           bsdf)
+        total = img if total is None else total + img
+    return total / n_chunks
 
 
 def render(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,

@@ -1,5 +1,7 @@
-"""Seeded scenes and rays of the march tests (numpy and the port only, so
-that the tests of the card can use them too)."""
+"""Seeded inputs shared by the tests and by ``chip_smoke.py`` (numpy and
+the package only), so that the card sees what the CPU tests see: the scene
+and rays of the march cases, and the two meshes of the insertion path (a
+lat-long sphere and a quad)."""
 
 import numpy as np
 
@@ -14,7 +16,7 @@ MARCH_CASES = [("frustum", False), ("two_edges", False),
                ("shadow_only", True), ("negative_pixels", False)]
 
 
-def scene(res, seed):
+def march_scene(res, seed):
     rng = np.random.default_rng(seed)
     depth = (2.0 + 0.2 * rng.uniform(size=(res, res))).astype(np.float32)
     for _ in range(5):
@@ -26,7 +28,7 @@ def scene(res, seed):
     return depth, mask
 
 
-def rays(case, rng, pos, nrm, n_rays):
+def march_rays(case, rng, pos, nrm, n_rays):
     """Seeded rays of one case, from pixels of the 32x32 scene."""
     pix = rng.integers(0, pos.shape[0], n_rays)
     o = pos[pix].copy()
@@ -53,12 +55,36 @@ def rays(case, rng, pos, nrm, n_rays):
 def march_case_inputs(case, shadow_only, res=32, n_rays=2000):
     """(cam, tables, origins (n_rays, 3), directions, n_steps, fine_steps)
     of one case on the CPU, origins and directions as numpy arrays."""
-    depth, mask = scene(res, 3)
+    depth, mask = march_scene(res, 3)
     cam = Camera(res, res)
     gt = make_gbuffer(depth, cam, flip_depth=False, mask=mask)
     tab = mk.march_tables(gt.dist, gt.valid, mip_f=4, fine_f=2)
     rng = np.random.default_rng(len(case))
-    o, d = rays(case, rng, gt.position.reshape(-1, 3).numpy(),
+    o, d = march_rays(case, rng, gt.position.reshape(-1, 3).numpy(),
                 gt.normal_geo.reshape(-1, 3).numpy(), n_rays)
     n_steps, fine_steps = (16, 2) if shadow_only else (24, 6)
     return cam, tab, o, d, n_steps, fine_steps
+
+
+def sphere_mesh(center, radius, n_lat=12, n_lon=24):
+    """Lat-long UV sphere: (verts (V, 3) float64, faces (F, 3) int32)."""
+    lat = np.linspace(0, np.pi, n_lat + 1)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    verts = np.stack([np.sin(th) * np.cos(ph), np.cos(th),
+                      np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    verts = verts * radius + np.asarray(center, np.float64)
+    i, j = np.meshgrid(np.arange(n_lat), np.arange(n_lon), indexing="ij")
+    a = (i * n_lon + j).ravel()
+    b = (i * n_lon + (j + 1) % n_lon).ravel()
+    c = ((i + 1) * n_lon + j).ravel()
+    d = ((i + 1) * n_lon + (j + 1) % n_lon).ravel()
+    faces = np.concatenate([np.stack([a, b, c], -1), np.stack([b, d, c], -1)])
+    return verts, faces.astype(np.int32)
+
+
+def quad_mesh(corner, du, dv):
+    """Two triangles spanning corner, corner + du, corner + dv."""
+    c, du, dv = (np.asarray(x, np.float64) for x in (corner, du, dv))
+    verts = np.stack([c, c + du, c + du + dv, c + dv])
+    return verts, np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where one inverse step of the PyTorch/CUDA package spends its time.
+"""Where one inverse step, or one forward pass, of the PyTorch/CUDA package
+spends its time.
 
 Run on a machine with one NVIDIA GPU, from the root of a checkout:
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py            # the inverse step
+    python3 scripts/profile_torch_step.py --forward  # one relight pass
 
 It builds an envmap phase step (``opt/step.py::make_phase_step``) on the
 in-repo photo_e2e scene at 512² × 64 spp, chunk 4, max_depth 4, without
@@ -14,10 +16,16 @@ synchronise), the device-busy time from ``torch.profiler`` (the sum of
 the device time of every kernel), the number of kernels launched, and
 the ten kernels that take the most device time. One JSON line per run;
 the card's name and power limit first.
+
+``--forward`` takes one 64-spp pass of ``render/forward.py::
+render_averaged`` on the same scene (chunk 8, film jitter 0.5, the scene's
+own envmap) instead, the render and the denoiser apart: after a warm-up,
+twice under the profiler and twice without.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -28,10 +36,72 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
+def _device_summary(prof, wall_ms):
+    """Device-busy time, its share of the wall time, launches and the ten
+    heaviest kernels of a stopped profile."""
+    ev = [e for e in prof.key_averages()
+          if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in ev) / 1e3
+    return dict(device_busy_ms=busy, device_busy_share=busy / wall_ms,
+                kernels_launched=sum(e.count for e in ev),
+                top=[(e.key[:60], e.count, round(e.device_time_total / 1e3, 3))
+                     for e in sorted(ev, key=lambda e:
+                                     -e.device_time_total)[:10]])
+
+
+def forward_pass(torch, chip_smoke):
+    """One 64-spp relight pass: render and denoise, each timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.render.denoise import atrous_denoise
+    from materialist_tpu_torch.render.shader import (RenderConfig,
+                                                     render_with_bsdf)
+    cam, gbuf, mats, env = chip_smoke.photo_scene(torch, torch.device("cuda"))
+    cfg = RenderConfig(spp=64, chunk=8, film_jitter=0.5)
+
+    def one(label, profiled):
+        out = {"run": label}
+        img = None
+        for part in ("render", "denoise"):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) \
+                if profiled else None
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                if part == "render":
+                    img = render_with_bsdf(rng.key(1), cfg, cam, gbuf, mats,
+                                           env)
+                else:
+                    atrous_denoise(img, albedo=mats.albedo,
+                                   normal=mats.normal)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out[part] = {"ms": ms}
+            if prof is not None:
+                prof.stop()
+                out[part].update(_device_summary(prof, ms))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    one("warm-up", False)
+    for label, profiled in (("profiled", True), ("profiled", True),
+                            ("no profiler", False), ("no profiler", False)):
+        torch.cuda.reset_peak_memory_stats()
+        print(json.dumps(one(label, profiled)), flush=True)
+
+
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--forward", action="store_true",
+                    help="profile one forward (relight) pass instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
     import chip_smoke
@@ -46,6 +116,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    if args.forward:
+        return forward_pass(torch, chip_smoke)
     dev = torch.device("cuda")
     cam, gbuf, mats, env = chip_smoke.photo_scene(torch, dev)
     gt = linear_to_srgb(torch.rand((512, 512, 3), device=dev,
@@ -80,16 +152,7 @@ def main():
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         if prof is not None:
             prof.stop()
-            ev = [e for e in prof.key_averages()
-                  if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-            busy = sum(e.device_time_total for e in ev) / 1e3
-            out.update(device_busy_ms=busy,
-                       device_busy_share=busy / ((t2 - t0) * 1e3),
-                       kernels_launched=sum(e.count for e in ev),
-                       top=[(e.key[:60], e.count,
-                             round(e.device_time_total / 1e3, 3))
-                            for e in sorted(ev, key=lambda e:
-                                            -e.device_time_total)[:10]])
+            out.update(_device_summary(prof, (t2 - t0) * 1e3))
         return out
 
     variants = {"plain": base, "compacted": base._replace(compact_caps=caps)}

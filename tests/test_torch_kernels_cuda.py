@@ -19,7 +19,8 @@ from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
 from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render import shader
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
-from torch_march_rays import MARCH_CASES, march_case_inputs
+from materialist_tpu_torch.utils.seeded import (MARCH_CASES,
+                                                march_case_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -296,3 +297,100 @@ def test_march_exits_and_shifts_on_the_card(card, case, shadow_only):
     assert torch.equal(got.hit.cpu(), ref.hit)
     assert torch.equal(got.idx.cpu(), ref.idx)
     torch.testing.assert_close(got.t.cpu(), ref.t, rtol=2e-7, atol=1e-6)
+
+
+# the envmap-sampling kernel: the three launch sizes of the compacted main
+# path and a ragged one whose uniforms start off an 8-byte boundary
+@pytest.mark.parametrize("hw", [(16, 32), (64, 64)],
+                         ids=["16x32", "64x64"])
+@pytest.mark.parametrize("m", [1048576, 131072, 65536, 70001])
+def test_env_sample_dir_shapes(card, m, hw):
+    """Row and column equal to the plain version's on every query; wi and
+    pdf equal bit for bit (the kernel's float operations, its sincosf
+    included, give what the plain version's give on an H100; chip_smoke.py
+    allows 2 units in the last place)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    env = (torch.rand((*hw, 3), generator=g, device=card) + 0.05) ** 4
+    smp = em.build_sampler(env)
+    tabs = (smp.m_cdf, smp.m_pdf, smp.c_cdf, smp.c_pdf)
+    u2 = rng.uniform(rng.key(m), (m + 1, 2), card)
+    if m == 70001:
+        u2 = u2.reshape(-1)[1:2 * m + 1].reshape(m, 2)   # 4-byte aligned
+    else:
+        u2 = u2[:m]
+    assert torch.equal(ek.env_sample_texels(*tabs, u2),
+                       ek.env_sample_texels_plain(smp.m_cdf, smp.c_cdf, u2))
+    wi, pdf = ek.env_sample_dir(*tabs, u2)
+    wi_p, pdf_p = ek.env_sample_dir_plain(*tabs, u2)
+    assert tuple(wi.shape) == (m, 3) and tuple(pdf.shape) == (m, 1)
+    assert torch.equal(wi, wi_p) and torch.equal(pdf, pdf_p)
+
+
+def test_env_sample_dir_edge_uniforms(card):
+    """Uniforms at 0, at 1 - 2^-24 and exactly on CDF values (where the
+    count of entries below the uniform must not include the entry
+    itself), in every pairing, batched as the tracer batches them."""
+    g = torch.Generator(device=card).manual_seed(6)
+    env = (torch.rand((16, 32, 3), generator=g, device=card) + 0.05) ** 4
+    smp = em.build_sampler(env)
+    tabs = (smp.m_cdf, smp.m_pdf, smp.c_cdf, smp.c_pdf)
+    edge = torch.tensor([0.0, 1.0 - 2.0 ** -24, 0.5], device=card)
+    x0 = torch.cat([edge, smp.m_cdf])
+    x1 = torch.cat([edge, smp.c_cdf.reshape(-1)])
+    u2 = torch.cartesian_prod(x0, x1).reshape(1, -1, 2).expand(2, -1, 2)
+    tex = ek.env_sample_texels(*tabs, u2)
+    assert torch.equal(tex, ek.env_sample_texels_plain(smp.m_cdf, smp.c_cdf,
+                                                       u2))
+    assert int(tex[..., 0].max()) == 15 and int(tex[..., 1].max()) == 31
+    wi, pdf = ek.env_sample_dir(*tabs, u2)
+    wi_p, pdf_p = ek.env_sample_dir_plain(*tabs, u2)
+    assert tuple(wi.shape) == (2, u2.shape[1], 3)
+    assert torch.equal(wi, wi_p) and torch.equal(pdf, pdf_p)
+    assert torch.isfinite(wi).all() and torch.isfinite(pdf).all()
+
+
+def test_env_kernels_refuse_large_tables(card):
+    big = torch.rand((65, 32), device=card)
+    with pytest.raises(ValueError, match="at most"):
+        ek.env_sample_dir(big[:, 0].contiguous(), big[:, 0].contiguous(),
+                          big, big, torch.rand((8, 2), device=card))
+
+
+@pytest.mark.parametrize("k", [15, 20])
+def test_row_gather_wide_rows(card, k):
+    """The transparent BSDF's (N, 15) table (run-time width) and the
+    trace's side table of 20 (compiled in)."""
+    g = torch.Generator(device=card).manual_seed(7)
+    table = torch.randn((4096, k), generator=g, device=card)
+    idx = torch.randint(0, 4096, (3, 5000), generator=g, device=card,
+                        dtype=torch.int32)
+    for exact in (True, False):
+        assert torch.equal(rowops.row_gather(table, idx, exact=exact),
+                           rowops.row_gather_plain(table, idx, exact))
+    t = table.clone().requires_grad_()
+    rowops.row_gather_diff(t, idx).sum().backward()
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=4096)
+    torch.testing.assert_close(t.grad, counts[:, None].float().expand(-1, k))
+
+
+@pytest.mark.parametrize("vectorized", [False, True],
+                         ids=["sequential", "vectorized"])
+@pytest.mark.parametrize("case,shadow_only", MARCH_CASES)
+def test_exact_march_card_against_cpu(card, case, shadow_only, vectorized):
+    """The "exact" march is plain tensor code: on the card it must pick
+    the hits it picks on the CPU (>= 99.9% of the flags; t within 1e-4
+    where both hit)."""
+    cam, tab, o, d, _, _ = march_case_inputs(case, shadow_only)
+    kw = dict(n_steps=24, n_refine=5, interval_frac=0.05,
+              vectorized=vectorized)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    hc = ss.march(cam, tab.dist, tab.valid, o, d, **kw)
+    hk = ss.march(cam, tab.dist.to(card), tab.valid.to(card), o.to(card),
+                  d.to(card), **kw)
+    hit_k = hk.hit.cpu()
+    assert float((hit_k == hc.hit).float().mean()) >= 0.999
+    both = hit_k & hc.hit
+    assert float((hk.idx.cpu() == hc.idx)[both].float().mean()) >= 0.999 \
+        or not bool(both.any())
+    torch.testing.assert_close(hk.t.cpu()[both], hc.t[both], rtol=1e-4,
+                               atol=1e-4)

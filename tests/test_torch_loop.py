@@ -69,15 +69,13 @@ def test_unported_options_raise(scene, tmp_path):
     with pytest.raises(NotImplementedError, match="MaterialNet"):
         inverse.main(["--img_inverse_path", str(fixture), "--save_name",
                       str(tmp_path), "--opt_src", "a", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="march_impl"):
-        tmake(RenderConfig(**CFG, march_impl="exact"), Camera(RES, RES),
-              scene["gt_buf"], lambda p, e: e,
-              lambda m, i, e: (i.sum(), None), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"compact_caps": (0.5,)},
-                                {"march_impl": "mip"}],
-                         ids=["compact_caps", "march_impl_mip"])
+                                {"march_impl": "mip"},
+                                {"march_impl": "exact"}],
+                         ids=["compact_caps", "march_impl_mip",
+                              "march_impl_exact"])
 def test_ported_options_build(scene, kw):
     ph = tmake(RenderConfig(**CFG, **kw), Camera(RES, RES), scene["gt_buf"],
                lambda p, e: e, lambda m, i, e: (i.sum(), None), device="cpu")

@@ -15,8 +15,9 @@ from materialist_tpu.render.scene import make_gbuffer as jmk
 from materialist_tpu_torch.camera import Camera
 from materialist_tpu_torch.ops.kernels import march as mk
 from materialist_tpu_torch.render.scene import make_gbuffer
-from torch_march_rays import MARCH_CASES, march_case_inputs
-from torch_march_rays import scene as _scene
+from materialist_tpu_torch.utils.seeded import (MARCH_CASES,
+                                                march_case_inputs)
+from materialist_tpu_torch.utils.seeded import march_scene as _scene
 
 torch.set_num_threads(2)
 

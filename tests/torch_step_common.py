@@ -9,6 +9,8 @@ sky fetch rounds its weights to bf16, envmap.py:174-180); loss within
 5e-3 relative; the elementwise, mean-relative and signed-bias gradient
 bounds of test_shadebounce.py."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,9 @@ from materialist_tpu.render.shader import RenderConfig as JCfg
 from materialist_tpu_torch import rng
 from materialist_tpu_torch.camera import Camera
 from materialist_tpu_torch.models import posmlp as tposmlp
-from materialist_tpu_torch.models.convert import posmlp_from_flax
+from materialist_tpu_torch.models.convert import (gbuffer_from_arrays,
+                                                   materials_from_arrays,
+                                                   posmlp_from_flax)
 from materialist_tpu_torch.ops.color import linear_to_srgb as tsrgb
 from materialist_tpu_torch.opt.step import make_phase_step as tmake
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
@@ -300,3 +304,26 @@ def check_records_equal(chunk_j, chunk_t):
                         np.abs(x - y),
                         2.0 ** -6 * np.maximum(np.abs(x), 1e-3) + 1e-12,
                         err_msg=where)
+
+
+def port_gbuffer(gj):
+    """The JAX package's GBuffer carried to the port (CPU)."""
+    return gbuffer_from_arrays(*(np.asarray(x) for x in gj))
+
+
+def port_materials(mj):
+    """The JAX package's Materials carried to the port (CPU)."""
+    return materials_from_arrays(*(np.asarray(x) for x in mj))
+
+
+@contextlib.contextmanager
+def jax_fused_shade():
+    """The JAX package's production shade on the CPU: its fused Pallas
+    bounce in interpret mode (as its own tests run it), so that both
+    packages replay the same packed records. Programs traced inside must
+    not come from a jit cache filled outside: jit a fresh function."""
+    jsb._INTERPRET = True
+    try:
+        yield
+    finally:
+        jsb._INTERPRET = False
