@@ -50,6 +50,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    denoised render, a transparent render, ``shade_glass`` and the "exact"
    march on the seeded rays of the march tests;
 5. runs the inverse CLI in its resume mode on a copy of the scene;
+6. path 7, predict from a photo: MaterialNet from the in-repo checkpoint
+   (``runs/matnet_r5/matnet_scratch.npz``) on photo_e2e's
+   ``gt_image.exr`` at 518², held against the same on the CPU (max abs
+   <= 1e-3 per map) and against the predictions the JAX package recorded
+   (mean abs albedo <= 2e-3, normal <= 8e-3, max abs depth <= 1e-2); the
+   full vit-b width with seeded weights at 518² (finite, unit normals,
+   non-negative maps) and card against CPU at 70²; each timed (CUDA
+   events, profiler device ms), with its peak memory and its bound from
+   the operations counted on the forward's shapes, with TF32 off and
+   again at PyTorch's default TF32 flags (the CLI's precision: cuDNN's
+   convolutions in TF32); then the inverse CLI's ``main`` with
+   photo_e2e's predict flags, in this process at PyTorch's default TF32
+   flags (A–E must all launch after the prediction; every prediction
+   file, config.json, the PLY and best_results/ must be written, and its
+   maps lie inside the recorded maps' bounds);
 
 then prints one JSON line with each kernel's numbers and, last, the
 device line. Any failed check exits nonzero before the JSON lines.
@@ -58,6 +73,7 @@ Extra output goes to ``chiprun_out/chip_smoke.log``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -72,10 +88,12 @@ SEED = 0
 DEV = "cuda"
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores
+H100_TF32_FLOPS = 495e12       # TF32 on the tensor cores, dense
 FLOPS_PER_MARCH_STEP = 24      # project + compare + updates, per step
 FLOPS_SHADE_FWD = 260          # per vertex: 2 BRDF evals, 2 fetches, MIS
 FLOPS_SHADE_BWD = 520          # per vertex: forward replay + adjoint
 LOG = []
+TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
 
 
 def log(*a):
@@ -150,6 +168,8 @@ def main():
     if not os.path.isdir(os.path.join(REPO, "materialist_tpu_torch")):
         fail("materialist_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    TF32_DEFAULTS.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                         cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -182,6 +202,7 @@ def main():
     compaction_agreement(torch)
     forward_agreements(torch)
     cli_run()
+    launches["path 7"] = predict_path(torch, _lib)
 
     for k in kernels:
         k["counter_name"] = k["counter"]
@@ -190,9 +211,9 @@ def main():
             fail(f"kernel {k['name']} was not launched on its path "
                  f"({k['path']})")
     for k in kernels:
-        k["launches_forward_paths"] = {
+        k["launches_by_path"] = {
             p: launches[p][k["counter_name"]]
-            for p in ("path 4", "path 5", "path 6")}
+            for p in ("path 4", "path 5", "path 6", "path 7")}
         k.pop("counter_name")
     log("kernels: " + ", ".join(
         f"{k['name']}={'ok' if k['ok'] else 'FAIL'}" for k in kernels))
@@ -1764,6 +1785,272 @@ def cli_run():
         log("  best_results layout written")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ path 7
+
+MATNET_CKPT = os.path.join(REPO, "runs", "matnet_r5", "matnet_scratch.npz")
+PHOTO_E2E = os.path.join(REPO, "output_imgs", "runs", "photo_e2e")
+PATH7_KERNELS = ("march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
+                 "row_gather", "row_scatter_add", "row_scatter_add_bf16",
+                 "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
+                 "env_pdf_dir", "env_lookup_bilinear")
+
+
+def matnet_flops(torch, net, x):
+    """Operations of one forward of ``net`` on ``x``, counted from the
+    shapes the forward sees: dense layers, convolutions (transposed ones
+    included) and attention (QKᵀ and PV, 4·B·N²·C). Elementwise work
+    (norms, GELU, softmax, resizes) is left out: under 1% of the sum."""
+    from torch import nn
+    from materialist_tpu_torch.models.dinov2 import Attention
+    tot = {"dense": 0, "attention": 0, "conv": 0}
+
+    def hook(m, inp, out):
+        a = inp[0]
+        if isinstance(m, nn.Linear):
+            tot["dense"] += 2 * a.numel() * m.out_features
+        elif isinstance(m, nn.Conv2d):
+            tot["conv"] += 2 * m.weight[0].numel() * out.numel()
+        elif isinstance(m, nn.ConvTranspose2d):
+            tot["conv"] += 2 * a.numel() * m.weight[0].numel()
+        else:
+            b, n, c = a.shape
+            tot["attention"] += 4 * b * n * n * c
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
+                               Attention))]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return tot
+
+
+def _top_kernels(torch, fn, iters=3, n=6):
+    """[(kernel name, device ms per call, launches per call)] of the ``n``
+    kernels with the most device time over ``iters`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.key_averages()
+                  if ev.device_type.name == "CUDA"),
+                 key=lambda ev: -ev.device_time_total)
+    return [(ev.key[:60], round(ev.device_time_total / iters / 1e3, 4),
+             ev.count // iters) for ev in evs[:n]]
+
+
+@contextlib.contextmanager
+def tf32_defaults(torch):
+    """PyTorch's own TF32 flags, as a process that does not set them runs
+    (the CLI: cuDNN's convolutions in TF32, matmuls in FP32); TF32 off
+    again on exit."""
+    torch.backends.cuda.matmul.allow_tf32 = TF32_DEFAULTS["matmul"]
+    torch.backends.cudnn.allow_tf32 = TF32_DEFAULTS["cudnn"]
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _forward_numbers(torch, net, x, what, iters):
+    """ms per forward (CUDA events, profiler device ms), peak memory and
+    the bound of ``net`` on ``x`` on the card at the TF32 flags in force;
+    logged and returned. The operations bound takes the convolutions at
+    the TF32 peak where cuDNN may use TF32, the dense layers and the
+    attention where matmuls may, else at the FP32 peak."""
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    mm_tf32 = torch.backends.cuda.matmul.allow_tf32
+    what += (f" (TF32: convolutions {'on' if conv_tf32 else 'off'}, "
+             f"matmuls {'on' if mm_tf32 else 'off'})")
+    flops = matnet_flops(torch, net, x)
+    n_bytes = 4 * (sum(p.numel() for p in net.parameters()) + x.numel())
+    with torch.inference_mode():
+        out = net(x)
+        n_bytes += 4 * sum(v.numel() for v in out.values())
+        del out
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t = cuda_ms(lambda: net(x), iters=iters, device=True)
+        top = _top_kernels(torch, lambda: net(x))
+    ops_ms = 1e3 * (
+        flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else H100_FP32_FLOPS)
+        + (flops["dense"] + flops["attention"])
+        / (H100_TF32_FLOPS if mm_tf32 else H100_FP32_FLOPS))
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                  else (ops_ms, "operations"))
+    dev = f"{t.device_ms:.3f}" if t.device_ms else "not measured"
+    log(f"  {what}: {t:.3f} ms per forward (events), device {dev} ms; "
+        f"bound {b_ms:.3f} ms ({b_by}: "
+        f"{sum(flops.values()) / 1e9:.2f} GFLOP = dense "
+        f"{flops['dense'] / 1e9:.2f} + attention "
+        f"{flops['attention'] / 1e9:.2f} + conv {flops['conv'] / 1e9:.2f}; "
+        f"{n_bytes / 1e6:.1f} MB); peak memory {peak / 2**30:.3f} GiB "
+        f"(weights and input {base / 2**30:.3f} GiB)")
+    log(f"  {what}, device ms per forward of the heaviest kernels: {top}")
+    return {"ms": float(t), "device_ms": t.device_ms, "bound_ms": b_ms,
+            "gflop": sum(flops.values()) / 1e9, "peak_gib": peak / 2**30}
+
+
+def _map_errors(got, ref, what, max_abs):
+    for k in ref:
+        if got[k].shape != ref[k].shape:
+            fail(f"{what}: {k} has shape {got[k].shape}, not "
+                 f"{ref[k].shape}")
+    errs = {k: float(abs(got[k] - ref[k]).max()) for k in ref}
+    log(f"  {what}: max_abs_err {errs} (allowed {max_abs})")
+    if any(not e <= max_abs for e in errs.values()):
+        fail(f"{what}: disagree beyond {max_abs}")
+
+
+def _against_recorded(maps, what):
+    """The maps against the predictions the JAX package recorded on a TPU
+    (bf16 passes): mean abs albedo <= 2e-3, normal <= 8e-3, max abs depth
+    <= 1e-2."""
+    import numpy as np
+    from materialist_tpu_torch.io import exr as exr_io
+    rec = {n: exr_io.read(os.path.join(PHOTO_E2E, f"{n}Pred.exr"))
+           for n in ("albedo", "normal", "depth")}
+    alb = float(np.abs(maps["albedo"][..., :3] - rec["albedo"][..., :3]).mean())
+    nrm = float(np.abs(maps["normal"][..., :3] - rec["normal"][..., :3]).mean())
+    depth = maps["depth"] if maps["depth"].ndim == 2 else maps["depth"][..., 0]
+    dep = float(np.abs(depth - rec["depth"][..., 0]).max())
+    log(f"  {what} against the recorded TPU predictions: mean abs albedo "
+        f"{alb:.3e} (<= 2e-3), normal {nrm:.3e} (<= 8e-3); max abs depth "
+        f"{dep:.3e} (<= 1e-2)")
+    if not (alb <= 2e-3 and nrm <= 8e-3 and dep <= 1e-2):
+        fail(f"{what} disagree with the recorded predictions")
+
+
+def predict_path(torch, _lib):
+    """Path 7, predict from a photo: (a) MaterialNet from the in-repo
+    checkpoint on photo_e2e's gt_image.exr, card against CPU and against
+    the recorded predictions, timed at 518²; (b) the full vit-b width with
+    seeded weights at 518², card against CPU at 70²; both timed with TF32
+    off and at PyTorch's default flags; (c) the inverse CLI's ``main``
+    with photo_e2e's predict flags, in this process at PyTorch's default
+    TF32 flags (seconds, launch counts, files). Returns the launches of
+    (c)."""
+    x = torch.rand((1, 3, 518, 518), generator=torch.Generator().manual_seed(
+        SEED)).to(DEV)
+    predict_checkpoint(torch, x)
+    predict_vitb(torch, x)
+    return predict_cli(torch, _lib)
+
+
+def predict_checkpoint(torch, x):
+    import numpy as np
+    from materialist_tpu_torch.io import exr as exr_io
+    from materialist_tpu_torch.models.matnet import MatNetInference
+    photo = exr_io.read(os.path.join(PHOTO_E2E, "gt_image.exr"))[..., :3]
+    log("[path 7a] MaterialNet, in-repo checkpoint, photo_e2e at 518x518")
+    t0 = time.perf_counter()
+    card = MatNetInference(weights_path=MATNET_CKPT)
+    log(f"  load {time.perf_counter() - t0:.2f} s")
+    got = card.infer_image(photo)
+    cpu = MatNetInference(weights_path=MATNET_CKPT,
+                          device="cpu").infer_image(photo)
+    for k, v in got.items():
+        if not np.isfinite(v).all():
+            fail(f"path 7a: {k} is not finite")
+    _map_errors(got, cpu, "card vs CPU", 1e-3)
+    _against_recorded(got, "card maps")
+    _forward_numbers(torch, card.net, x, "checkpoint forward at 518x518", 20)
+    with tf32_defaults(torch):
+        _forward_numbers(torch, card.net, x, "checkpoint forward at 518x518",
+                         20)
+
+
+def predict_vitb(torch, x):
+    import copy
+    from materialist_tpu_torch.models.dpt import MaterialNet
+    log("[path 7b] MaterialNet vit-b (embed 768, 12 layers, 12 heads, "
+        "features 128), seeded weights")
+    net_cpu = MaterialNet(generator=torch.Generator().manual_seed(SEED))
+    net_cpu.eval()
+    net = copy.deepcopy(net_cpu).to(DEV)
+    with torch.inference_mode():
+        out = {k: v.float() for k, v in net(x).items()}
+    for k, v in out.items():
+        if tuple(v.shape[-2:]) != (518, 518) or not bool(
+                torch.isfinite(v).all()):
+            fail(f"vit-b {k} is not a finite 518x518 map")
+    n_err = float((torch.linalg.vector_norm(out["normal"], dim=1) - 1)
+                  .abs().max())
+    low = min(float(out[k].min()) for k in ("depth", "albedo", "roughness",
+                                           "metallic"))
+    log(f"  518x518: normals unit within {n_err:.2e} (<= 1e-3), least of "
+        f"depth/albedo/roughness/metallic {low:.3e} (>= 0), largest "
+        f"{ {k: round(float(v.max()), 4) for k, v in out.items()} }")
+    if n_err > 1e-3 or low < 0:
+        fail("vit-b maps out of their ranges")
+    del out
+    x70 = torch.rand((1, 3, 70, 70), generator=torch.Generator().manual_seed(
+        SEED + 1))
+    with torch.inference_mode():
+        a = {k: v.cpu().numpy() for k, v in net(x70.to(DEV)).items()}
+        b = {k: v.numpy() for k, v in net_cpu(x70).items()}
+    _map_errors(a, b, "vit-b at 70x70 (pos-embed interpolated), card vs CPU",
+                1e-3)
+    _forward_numbers(torch, net, x, "vit-b forward at 518x518", 10)
+    with tf32_defaults(torch):
+        _forward_numbers(torch, net, x, "vit-b forward at 518x518", 10)
+
+
+def predict_cli(torch, _lib):
+    from materialist_tpu_torch.cli import inverse
+    from materialist_tpu_torch.io import exr as exr_io
+    argv = ["--opt_src", "a", "--opt_order", "rm", "a", "--opt_env_from",
+            "2", "--weights", MATNET_CKPT, "--num_epochs", "2",
+            "--frame_every", "0"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    try:
+        img = os.path.join(tmp, "gt_image.exr")
+        shutil.copy(os.path.join(PHOTO_E2E, "gt_image.exr"), img)
+        d = os.path.join(tmp, "photo_pred")
+        log("[path 7c] inverse CLI main(), predict branch, in this process "
+            "at PyTorch's default TF32 flags: " + " ".join(argv[:8]))
+        with tf32_defaults(torch):
+            _, launches, sec = _drive(torch, _lib, lambda: inverse.main(
+                ["--img_inverse_path", img, "--save_name", d] + argv))
+        log(f"  main() {sec:.2f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        for k in PATH7_KERNELS:
+            if launches[k] <= 0:
+                fail(f"path 7: kernel {k} was not launched after the "
+                     "prediction")
+        _need_files(d, ("albedoPred.exr", "normalPred.exr",
+                        "roughnessPred.png", "metallicPred.png",
+                        "depthPred.exr", "gt_image.exr", "gt_image.png",
+                        "config.json", "photo_pred.ply",
+                        "final_envmap.hdr"), "predict CLI")
+        _need_files(os.path.join(d, "best_results"), (
+            "albedo.exr", "roughness.exr", "metallic.exr", "normal.exr",
+            "rendered_img.exr", "envmap.hdr"), "predict CLI")
+        with open(os.path.join(d, "config.json")) as f:
+            cfg = json.load(f)
+        if cfg["opt_src"] != "a" or cfg["opt_order"] != ["rm", "a"] \
+                or cfg["opt_env_from"] != 2:
+            fail(f"predict CLI wrote config {cfg}")
+        _against_recorded({n: exr_io.read(os.path.join(d, f"{n}Pred.exr"))
+                           for n in ("albedo", "normal", "depth")},
+                          "CLI maps (PyTorch's default TF32)")
+        log("  prediction files, config.json, PLY and best_results written")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,21 +1,26 @@
 """Single-image inverse rendering CLI (counterpart of
 ``materialist_tpu/cli/inverse.py``).
 
-Load + center-crop-resize the input to 512², build the depth mesh PLY if
-absent, then run the alternating envmap/material optimization on the
-card. Only the resume branch (``--opt_src skip --opt_order skip``: reload
-best_results/ and depthPred.exr from the output dir) is ported; the
-MaterialNet prediction branch waits for the MaterialNet port.
+Load + center-crop-resize the input to 512², sRGB→linear for PNG/JPG,
+predict albedo, roughness, metallic, normal and depth with MaterialNet,
+write the prediction files + config.json, build the depth mesh PLY if
+absent, then run the alternating envmap/material optimization, all on the
+card. ``--opt_src skip --opt_order skip`` resumes instead: it reloads
+best_results/ and depthPred.exr from the output dir and predicts nothing.
 
 Usage: python -m materialist_tpu_torch.cli.inverse --img_inverse_path
-           img.exr --save_name NAME --opt_src skip --opt_order skip
+           img.exr --save_name NAME --opt_src a [--opt_order rm a]
+           [--weights runs/matnet_r5/matnet_scratch.npz | matnet.pth]
+           [--use_mask] [--opt_env_from 2] [--save_path DIR]
            [--num_epochs N] [--spp 64] [--frame_every 10] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import time
 import warnings
 
 import numpy as np
@@ -48,22 +53,54 @@ def inverse_image(img_inverse_path, save_name, opt_src, opt_order,
 
     skip = opt_src == "skip" and list(opt_order) == ["skip"]
     if not skip:
-        raise NotImplementedError(
-            "the MaterialNet prediction branch needs the MaterialNet port "
-            "(ROADMAP queue 1 item 11); run with --opt_src skip "
-            "--opt_order skip on a scene dir with best_results/")
-    print("Load Pre Opted Brdf")
-    br = os.path.join(output_dir, "best_results")
-    mat = {
-        "albedo": np.clip(exr_io.read(os.path.join(br, "albedo.exr")), 0, 1),
-        "roughness": np.clip(exr_io.read(
-            os.path.join(br, "roughness.exr"))[..., :1], 0.07, 1),
-        "metallic": np.clip(exr_io.read(
-            os.path.join(br, "metallic.exr"))[..., :1], 0, 1),
-        "normal": exr_io.read(os.path.join(br, "normal.exr")),
-        "gt_image": img.astype(np.float32),
-    }
-    depth = exr_io.read(os.path.join(output_dir, "depthPred.exr"))[..., :1]
+        from materialist_tpu_torch.models.matnet import MatNetInference
+        matnet = MatNetInference(weights_path=weights_path, device=dev)
+        pred = matnet.infer_image(img)
+        depth = pred["depth"].astype(np.float32)[..., None]
+        mat = {
+            "gt_image": img.astype(np.float32),
+            "albedo": np.clip(pred["albedo"], 0, 1),
+            "normal": pred["normal"],
+            "roughness": np.clip(pred["roughness"][..., None], 0.07, 1),
+            "metallic": np.clip(pred["metallic"][..., None], 0, 1),
+        }
+
+        for name, arr in (("albedoPred.exr", pred["albedo"]),
+                          ("normalPred.exr", pred["normal"]),
+                          ("roughnessPred.png", pred["roughness"]),
+                          ("metallicPred.png", pred["metallic"]),
+                          ("depthPred.exr", depth[..., 0]),
+                          ("gt_image.exr", img), ("gt_image.png", img)):
+            image_io.write(os.path.join(output_dir, name), arr)
+
+        config = {
+            "img_path": img_inverse_path, "save_name": save_name,
+            "opt_src": opt_src, "opt_order": list(opt_order),
+            "use_mask": use_mask, "opt_env_from": opt_env_from,
+            "model_name": model_name,
+            "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+            "image_size": list(img.shape[:2]), "spp": spp,
+            "output_type": "armn" if "n" in str(opt_order) else "arm",
+            "use_mesh_normal": not ("n" in str(opt_order)),
+        }
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=4)
+        print(f"Configuration saved to {output_dir}/config.json")
+    else:
+        print("Load Pre Opted Brdf")
+        br = os.path.join(output_dir, "best_results")
+        mat = {
+            "albedo": np.clip(exr_io.read(os.path.join(br, "albedo.exr")),
+                              0, 1),
+            "roughness": np.clip(exr_io.read(
+                os.path.join(br, "roughness.exr"))[..., :1], 0.07, 1),
+            "metallic": np.clip(exr_io.read(
+                os.path.join(br, "metallic.exr"))[..., :1], 0, 1),
+            "normal": exr_io.read(os.path.join(br, "normal.exr")),
+            "gt_image": img.astype(np.float32),
+        }
+        depth = exr_io.read(
+            os.path.join(output_dir, "depthPred.exr"))[..., :1]
 
     if use_mask:
         mask_path = os.path.join(output_dir, "best_results", "mask.png")
@@ -131,7 +168,10 @@ def parse_args(argv=None):
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--weights", type=str, default=None,
-                   help="local matnet_weights.pth")
+                   help="MaterialNet weights: a native .npz checkpoint "
+                        "(e.g. runs/matnet_r5/matnet_scratch.npz) or a "
+                        "reference matnet_weights.pth (default: "
+                        "$MATNET_WEIGHTS)")
     p.add_argument("--frame_every", type=int, default=10)
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu")

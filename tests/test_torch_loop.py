@@ -1,6 +1,7 @@
 """The port's loop and package boundaries on the CPU: ``optimize`` writes
 the best_results layout (as tests/test_cli_contract.py checks for the JAX
-package), the entry points refuse to run without CUDA unless asked for
+package), the inverse CLI's predict branch hands ``optimize`` what the JAX
+CLI's does, the entry points refuse to run without CUDA unless asked for
 the CPU, and no module of the port (nor chip_smoke.py) imports JAX, Flax,
 optax or the JAX package."""
 
@@ -61,14 +62,78 @@ def test_entry_points_refuse_cpu_without_request(scene, tmp_path,
         inverse.main(["--img_inverse_path", "x.exr", "--save_name",
                       str(tmp_path), "--opt_src", "skip", "--opt_order",
                       "skip"])
+    from materialist_tpu_torch.models.matnet import MatNetInference
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MatNetInference()
 
 
-def test_unported_options_raise(scene, tmp_path):
-    from materialist_tpu_torch.cli import inverse
-    fixture = REPO / "output_imgs" / "runs" / "photo_e2e" / "gt_image.exr"
-    with pytest.raises(NotImplementedError, match="MaterialNet"):
-        inverse.main(["--img_inverse_path", str(fixture), "--save_name",
-                      str(tmp_path), "--opt_src", "a", "--device", "cpu"])
+def test_predict_branch_matches_jax(tmp_path, monkeypatch):
+    """``--opt_src a --opt_order rm a`` on the in-repo photo and
+    checkpoint, through both packages' ``inverse_image`` (the port on the
+    CPU) with ``optimize`` replaced by a recorder: the same prediction
+    files, the same config.json but for its timestamp and input path,
+    and the same clipped maps and options handed to ``optimize``."""
+    import dataclasses
+    import json
+
+    from materialist_tpu.cli import inverse as jinv
+    from materialist_tpu_torch.cli import inverse as tinv
+    from materialist_tpu_torch.io import exr as exr_io
+
+    photo = REPO / "output_imgs" / "runs" / "photo_e2e" / "gt_image.exr"
+    weights = str(REPO / "runs" / "matnet_r5" / "matnet_scratch.npz")
+    seen = {}
+
+    def recorder(tag):
+        def optimize(gbuf, cam, mat, output_dir, opts, **kw):
+            seen[tag] = ({k: np.asarray(v) for k, v in mat.items()},
+                         dataclasses.asdict(opts))
+            return {}
+        return optimize
+
+    monkeypatch.setattr(tinv, "optimize", recorder("port"))
+    monkeypatch.setattr(jinv, "optimize", recorder("jax"))
+    out = {}
+    for tag in ("port", "jax"):
+        root = tmp_path / tag
+        root.mkdir()
+        img = root / "gt_image.exr"
+        img.write_bytes(photo.read_bytes())
+        if tag == "port":
+            tinv.main(["--img_inverse_path", str(img), "--save_name",
+                       "photo", "--save_path", str(root), "--opt_src", "a",
+                       "--opt_order", "rm", "a", "--opt_env_from", "2",
+                       "--weights", weights, "--device", "cpu"])
+        else:
+            jinv.inverse_image(str(img), "photo", "a", ["rm", "a"],
+                               opt_env_from=2, save_path=str(root),
+                               weights_path=weights)
+        out[tag] = root / "photo"
+
+    names = ("albedoPred.exr", "normalPred.exr", "roughnessPred.png",
+             "metallicPred.png", "depthPred.exr", "gt_image.exr",
+             "gt_image.png", "config.json", "photo.ply")
+    for name in names:
+        assert (out["port"] / name).exists(), name
+    for name in ("albedoPred.exr", "normalPred.exr", "depthPred.exr"):
+        a = exr_io.read(str(out["port"] / name))
+        b = exr_io.read(str(out["jax"] / name))
+        assert a.shape == b.shape and float(np.abs(a - b).max()) <= 1e-3
+
+    def config(tag):
+        with open(out[tag] / "config.json") as f:
+            c = json.load(f)
+        return {k: v for k, v in c.items()
+                if k not in ("timestamp", "img_path")}
+    assert config("port") == config("jax")
+
+    (mat_t, opts_t), (mat_j, opts_j) = seen["port"], seen["jax"]
+    assert opts_t == {k: v for k, v in opts_j.items() if k in opts_t}
+    for k in ("albedo", "roughness", "metallic", "normal", "gt_image"):
+        assert mat_t[k].shape == mat_j[k].shape, k
+        assert float(np.abs(mat_t[k] - mat_j[k]).max()) <= 1e-3, k
+    assert mat_t["roughness"].min() >= 0.07
+    assert 0 <= mat_t["albedo"].min() and mat_t["albedo"].max() <= 1
 
 
 @pytest.mark.parametrize("kw", [{"compact_caps": (0.5,)},
