@@ -94,6 +94,10 @@ FLOPS_SHADE_FWD = 260          # per vertex: 2 BRDF evals, 2 fetches, MIS
 FLOPS_SHADE_BWD = 520          # per vertex: forward replay + adjoint
 LOG = []
 TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
+# kernels of the gradient and of compaction: no launch on a path without
+NO_GRAD_NONE_OF = ("shade_bounce_bwd", "row_scatter_add",
+                   "row_scatter_add_bf16", "row_scatter_add_coherent",
+                   "compact_sel")
 
 
 def log(*a):
@@ -146,10 +150,18 @@ def cuda_ms(fn, iters=20, warmup=3, device=False):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(ev.device_time_total for ev in prof.key_averages()
-                       if ev.device_type.name == "CUDA")
+        total_us = sum(ev.device_time_total for ev in _device_events(prof))
         out.device_ms = total_us / iters / 1e3 if total_us > 0 else None
     return out
+
+
+def _device_events(prof):
+    """The profiler's device operations, without the ranges of user
+    annotations (``Optimizer.step#AdamW.step``), whose device span would
+    count the kernels inside them twice."""
+    return [ev for ev in prof.key_averages()
+            if ev.device_type.name == "CUDA"
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def bound(bytes_moved, flops):
@@ -203,6 +215,7 @@ def main():
     forward_agreements(torch)
     cli_run()
     launches["path 7"] = predict_path(torch, _lib)
+    launches["path 8"], launches["path 8 generate"] = train_path(torch, _lib)
 
     for k in kernels:
         k["counter_name"] = k["counter"]
@@ -213,7 +226,8 @@ def main():
     for k in kernels:
         k["launches_by_path"] = {
             p: launches[p][k["counter_name"]]
-            for p in ("path 4", "path 5", "path 6", "path 7")}
+            for p in ("path 4", "path 5", "path 6", "path 7", "path 8",
+                      "path 8 generate")}
         k.pop("counter_name")
     log("kernels: " + ", ".join(
         f"{k['name']}={'ok' if k['ok'] else 'FAIL'}" for k in kernels))
@@ -1527,15 +1541,12 @@ def forward_paths(torch, _lib):
     from materialist_tpu_torch.io import image as image_io
     from materialist_tpu_torch.render import forward
 
-    none_of = ("shade_bounce_bwd", "row_scatter_add", "row_scatter_add_bf16",
-               "row_scatter_add_coherent", "compact_sel")
-
     def counters(launches, want, what):
         log(f"  launches {what}: { {k: v for k, v in launches.items() if v} }")
         for k in want:
             if launches[k] <= 0:
                 fail(f"{what}: kernel {k} was not launched")
-        for k in none_of:
+        for k in NO_GRAD_NONE_OF:
             if launches[k] != 0:
                 fail(f"{what}: {k} was launched {launches[k]} times on a "
                      "path that takes no gradient and does not compact")
@@ -1831,19 +1842,24 @@ def matnet_flops(torch, net, x):
 
 
 def _top_kernels(torch, fn, iters=3, n=6):
-    """[(kernel name, device ms per call, launches per call)] of the ``n``
-    kernels with the most device time over ``iters`` calls of ``fn``."""
+    """``fn`` once, then ``iters`` times under ``torch.profiler``: (device
+    ms per call or None, device operations per call, and the ``n``
+    kernels with the most device time as (name, device ms per call,
+    launches per call))."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = sorted((ev for ev in prof.key_averages()
-                  if ev.device_type.name == "CUDA"),
-                 key=lambda ev: -ev.device_time_total)
-    return [(ev.key[:60], round(ev.device_time_total / iters / 1e3, 4),
-             ev.count // iters) for ev in evs[:n]]
+    evs = sorted(_device_events(prof), key=lambda ev: -ev.device_time_total)
+    total_us = sum(ev.device_time_total for ev in evs)
+    top = [(ev.key[:60], round(ev.device_time_total / iters / 1e3, 4),
+            ev.count // iters) for ev in evs[:n]]
+    return (total_us / iters / 1e3 if total_us > 0 else None,
+            sum(ev.count for ev in evs) / iters, top)
 
 
 @contextlib.contextmanager
@@ -1883,7 +1899,7 @@ def _forward_numbers(torch, net, x, what, iters):
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         t = cuda_ms(lambda: net(x), iters=iters, device=True)
-        top = _top_kernels(torch, lambda: net(x))
+        _, _, top = _top_kernels(torch, lambda: net(x))
     ops_ms = 1e3 * (
         flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else H100_FP32_FLOPS)
         + (flops["dense"] + flops["attention"])
@@ -2034,8 +2050,9 @@ def predict_cli(torch, _lib):
         _need_files(d, ("albedoPred.exr", "normalPred.exr",
                         "roughnessPred.png", "metallicPred.png",
                         "depthPred.exr", "gt_image.exr", "gt_image.png",
-                        "config.json", "photo_pred.ply",
-                        "final_envmap.hdr"), "predict CLI")
+                        "config.json", "final_envmap.hdr"), "predict CLI")
+        # an absolute --save_name puts the mesh beside the output dir
+        _need_files(tmp, ("photo_pred.ply",), "predict CLI")
         _need_files(os.path.join(d, "best_results"), (
             "albedo.exr", "roughness.exr", "metallic.exr", "normal.exr",
             "rendered_img.exr", "envmap.hdr"), "predict CLI")
@@ -2050,6 +2067,310 @@ def predict_cli(torch, _lib):
         log("  prediction files, config.json, PLY and best_results written")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------ path 8
+
+PATH8_KERNELS = ("march_pair", "shade_bounce_fwd", "row_gather",
+                 "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear")
+PATH8_TUPLES, PATH8_SPP, PATH8_STEPS, PATH8_BATCH = 64, 32, 300, 4
+
+
+def train_path(torch, _lib):
+    """Path 8, MaterialNet training: (a) the device trainer's
+    ``render_dataset`` (64 tuples at 224x336, 32 spp, on the card; A, B,
+    C, D, D′ and E must launch, B′, C′ and ``compact_sel`` must not); (b)
+    one step of the frozen recipe of the reduced net, card against CPU;
+    (c) the device trainer's step for 300 steps, timed; (d) its f16
+    checkpoint through ``MatNetInference``; (e) ``generate`` and ``train``
+    on disk at the vit-b width. Returns the launches of (a) and of
+    ``generate``."""
+    from materialist_tpu_torch.cli import train_matnet_device as tdev
+    log(f"[path 8a] render_dataset: {PATH8_TUPLES} tuples at "
+        f"{tdev.IM_HW[0]}x{tdev.IM_HW[1]}, {PATH8_SPP} spp, on the card")
+    data, launches, sec = _drive(torch, _lib, lambda: tdev.render_dataset(
+        PATH8_TUPLES, PATH8_SPP, SEED))
+    _path8_counters(launches, PATH8_KERNELS, "render_dataset")
+    if not bool(torch.isfinite(data["im"]).all()) or not float(
+            data["im"].mean()) > 0:
+        fail("path 8: rendered images not finite or black")
+    log(f"  {sec:.2f} s, {sec / PATH8_TUPLES * 1e3:.1f} ms per tuple; "
+        f"image mean {float(data['im'].mean()):.4f}")
+    frozen_step_card_vs_cpu(torch, data)
+    net = scratch_on_card(torch, data)
+    checkpoint_roundtrip(torch, net)
+    return launches, disk_route(torch, _lib)
+
+
+def _path8_counters(launches, want, what):
+    log(f"  launches {what}: { {k: v for k, v in launches.items() if v} }")
+    for k in want:
+        if launches[k] <= 0:
+            fail(f"path 8, {what}: kernel {k} was not launched")
+    for k in NO_GRAD_NONE_OF:
+        if launches[k] != 0:
+            fail(f"path 8, {what}: {k} was launched {launches[k]} times")
+
+
+def frozen_step_card_vs_cpu(torch, data):
+    """One frozen-recipe step (lr 1e-4) of the reduced net (the heads'
+    last biases lifted) on the first two tuples (depth in scene units, as
+    MGDataset gives it), TF32 off,
+    from the same weights on the card and on the CPU: loss terms within
+    1e-4 relative, each trainable gradient within 1e-3 of its tensor's
+    largest; each device's parameters equal to AdamW's first step on its
+    own gradient (1e-7), and card and CPU within 1e-5 where the
+    difference of the gradients pins the step (2·lr elsewhere, counted);
+    a seeded LPIPS forward within 1e-4 relative."""
+    import copy
+    from materialist_tpu_torch.cli import train_matnet_device as tdev
+    from materialist_tpu_torch.models import lpips
+    from materialist_tpu_torch.models import train as tr
+    log("[path 8b] frozen-recipe step of the reduced net, batch 2, card "
+        "against CPU (TF32 off)")
+    batch = {k: v[:2].cpu() for k, v in data.items()}
+    batch["depth"] = batch["depth"] * 1e-3
+    net = tdev.reduced_net(SEED, "cpu")
+    with torch.no_grad():
+        # seeded heads put depth at its ReLU and the loss's clamp, where a
+        # last-bit difference flips a gradient: lift their last biases
+        net.depth_head.scratch.output_conv2[2].bias += 1.0
+        net.material_head.scratch.output_conv2[2].bias += 0.3
+    out = {}
+    for dev in ("cpu", DEV):
+        m = copy.deepcopy(net).to(dev)
+        step = tr.make_train_step(m, tr.make_optimizer(m, 1e-4))
+        t0 = time.perf_counter()
+        losses = step({k: v.to(dev) for k, v in batch.items()})
+        out[dev] = ({k: float(v) for k, v in losses.items()}, m,
+                    time.perf_counter() - t0)
+    (lc, mc, tc), (lg, mg, tg) = out["cpu"], out[DEV]
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    pc, pg = dict(mc.named_parameters()), dict(mg.named_parameters())
+    train = tr.trainable_names(mc)
+    grad_err = max(float((pg[k].grad.cpu() - pc[k].grad).abs().max())
+                   / max(float(pc[k].grad.abs().max()), 1e-30)
+                   for k in train)
+    # AdamW's first step moves a parameter by lr·g/(|g| + eps) (and the
+    # decay lr·wd·p): about ±lr wherever |g| >> eps, whatever |g| is. So
+    # each device's step is held to that formula on its own gradient, and
+    # across devices the parameters must agree within 1e-5 where the
+    # tensor's gradient difference δ pins the step: |g| > 2δ fixes the
+    # sign and g² > 10·eps·δ bounds the difference of the two steps,
+    # lr·eps·δ/g², by 0.1·lr. Elsewhere they differ by at most 2·lr.
+    lr, wd = 1e-4, 0.01
+    p0 = net.state_dict()
+    sg = mg.state_dict()
+    step_err, par_err, n_free, free_err = 0.0, 0.0, 0, 0.0
+    for k, v in mc.state_dict().items():
+        d = (sg[k].cpu() - v).abs()
+        if k in train:
+            for p1, gr in ((v, pc[k].grad), (sg[k].cpu(), pg[k].grad.cpu())):
+                want = p0[k] * (1 - lr * wd) - lr * gr / (gr.abs() + tr.EPS)
+                step_err = max(step_err, float((p1 - want).abs().max()))
+            g = pc[k].grad.abs()
+            delta = float((pg[k].grad.cpu() - pc[k].grad).abs().max())
+            free = (g <= 2 * delta) | (g * g <= 10 * tr.EPS * delta)
+            n_free += int(free.sum())
+            if free.any():
+                free_err = max(free_err, float(d[free].max()))
+            d = d[~free]
+        par_err = max(par_err, float(d.max()) if d.numel() else 0.0)
+    n_train = sum(pc[k].numel() for k in train)
+    frozen_same = all(torch.equal(sg[k].cpu(), v)
+                      for k, v in net.state_dict().items() if k not in train)
+    log(f"  losses {lg}; loss terms rel err {loss_err:.2e} (<= 1e-4), "
+        f"trainable grads {grad_err:.2e} of their max (<= 1e-3); each "
+        f"device's step against AdamW's first step on its own gradient "
+        f"{step_err:.2e} (<= 1e-7); params card vs CPU {par_err:.2e} "
+        f"(<= 1e-5) where the gradient pins the step, {n_free} of "
+        f"{n_train} trained elements that it does not pin differ by up to "
+        f"{free_err:.2e} (<= 2·lr); frozen unchanged {frozen_same}; step "
+        f"s: CPU {tc:.2f}, card {tg:.2f}")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and step_err <= 1e-7
+            and par_err <= 1e-5 and free_err <= 2.2e-4 and frozen_same):
+        fail("path 8: frozen step card against CPU disagrees")
+    g = torch.Generator().manual_seed(SEED)
+    lp = lpips.LPIPS()
+    with torch.no_grad():
+        for name, p in lp.named_parameters():
+            if name.endswith("bias") or name.startswith("lin"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g) + 0.02)
+        x, y = data["im"][:2].clamp(0, 1), data["albedo"][:2]
+        ref = lp(x.cpu(), y.cpu(), normalize=True)
+        got = copy.deepcopy(lp).to(DEV)(x, y, normalize=True)
+    lp_err = float(((got.cpu() - ref).abs() / ref.abs()).max())
+    log(f"  seeded LPIPS at {tdev.IM_HW}: {ref.tolist()}, card rel err "
+        f"{lp_err:.2e} (<= 1e-4)")
+    if not lp_err <= 1e-4:
+        fail("path 8: LPIPS card against CPU disagrees")
+
+
+def _step_loop(torch, step, n, key):
+    """``n`` device-trainer steps, each between two CUDA events; returns
+    (losses (n, 6) on the host, ms per step, next key)."""
+    from materialist_tpu_torch import rng
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    losses = []
+    for s, e in ev:
+        key, k = rng.split(key)
+        s.record()
+        losses.append(torch.stack(list(step(k).values())))
+        e.record()
+    torch.cuda.synchronize()
+    return (torch.stack(losses).cpu(), [s.elapsed_time(e) for s, e in ev],
+            key)
+
+
+def _median(v):
+    v = sorted(v)
+    return 0.5 * (v[(len(v) - 1) // 2] + v[len(v) // 2])
+
+
+def scratch_on_card(torch, data):
+    """The device trainer's step (the from-scratch recipe, batch 4) for
+    300 steps on the rendered tuples at PyTorch's default TF32 flags (the
+    trainer's precision): losses finite, the mean of the last 30 under 0.7
+    of the first 10's. Timed per step with CUDA events, and again on a
+    copy at TF32 off; the profiler's device ms per step, peak memory and
+    the operations bound. Returns the trained net."""
+    import copy
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.cli import train_matnet_device as tdev
+    from materialist_tpu_torch.models import train as tr
+    log(f"[path 8c] device trainer step, batch {PATH8_BATCH}, "
+        f"{PATH8_STEPS} steps on the {PATH8_TUPLES} tuples")
+    net = tdev.reduced_net(SEED, DEV)
+    x = data["im"][:PATH8_BATCH]
+    flops = matnet_flops(torch, net, x)
+    fwd = sum(flops.values())
+    out = {}
+    for label, flags in (("default flags", True), ("TF32 off", False)):
+        m = net if flags else copy.deepcopy(net)
+        n = PATH8_STEPS if flags else 40
+        step = tdev.make_device_step(tr.scratch_step(m, 3e-4, PATH8_STEPS),
+                                     data, PATH8_BATCH)
+        ctx = tf32_defaults(torch) if flags else contextlib.nullcontext()
+        with ctx:
+            conv_tf32 = torch.backends.cudnn.allow_tf32
+            mm_tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms, key = _step_loop(torch, step, n, rng.key(SEED + 1))
+            peak = torch.cuda.max_memory_allocated()
+            dev_ms, n_ops, top = _top_kernels(
+                torch, lambda: step(rng.fold_in(key, 0)), iters=5, n=5)
+        ops_ms = 3e3 * (
+            flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else H100_FP32_FLOPS)
+            + (flops["dense"] + flops["attention"])
+            / (H100_TF32_FLOPS if mm_tf32 else H100_FP32_FLOPS))
+        med = _median(ms[20:])
+        dev = f"{dev_ms:.3f}" if dev_ms else "not measured"
+        log(f"  {label} (TF32: convolutions {'on' if conv_tf32 else 'off'}, "
+            f"matmuls {'on' if mm_tf32 else 'off'}): {med:.3f} ms per step "
+            f"(events, median of steps 21-{n}), device {dev} ms per step "
+            f"(profiler, 5 steps); bound {ops_ms:.3f} ms (operations: 3 x "
+            f"{fwd / 1e9:.2f} GFLOP forward = dense "
+            f"{flops['dense'] / 1e9:.2f} + attention "
+            f"{flops['attention'] / 1e9:.2f} + conv "
+            f"{flops['conv'] / 1e9:.2f}); peak memory {peak / 2**30:.3f} GiB "
+            f"(the {PATH8_TUPLES} tuples included)")
+        log(f"  {label}: {n_ops:.0f} device operations per step; heaviest "
+            f"(name, device ms per step, launches per step): {top}")
+        out[label] = losses[:, 0]
+    total = out["default flags"]
+    first, last = float(total[:10].mean()), float(total[-30:].mean())
+    at = (0, PATH8_STEPS // 3, 2 * PATH8_STEPS // 3, PATH8_STEPS - 1)
+    log(f"  total loss: first 10 mean {first:.4f}, last 30 mean {last:.4f} "
+        f"(< 0.7 x first); at steps {at}: "
+        f"{[round(float(total[i]), 4) for i in at]}")
+    if not (bool(torch.isfinite(total).all())
+            and bool(torch.isfinite(out['TF32 off']).all())):
+        fail("path 8: a training loss is not finite")
+    if not last < 0.7 * first:
+        fail("path 8: the scratch recipe's loss did not fall below 0.7x")
+    return net
+
+
+def checkpoint_roundtrip(torch, net):
+    """Save the trained net as the f16 checkpoint with its config, reload
+    it through ``MatNetInference``'s npz route, and compare its maps on
+    photo_e2e with the in-memory net at the f16-rounded weights (<= 1e-4)."""
+    import copy
+    from materialist_tpu_torch.io import exr as exr_io
+    from materialist_tpu_torch.models import train as tr
+    from materialist_tpu_torch.models.matnet import MatNetInference
+    log("[path 8d] f16 checkpoint of the trained net through "
+        "MatNetInference's npz route")
+    photo = exr_io.read(os.path.join(PHOTO_E2E, "gt_image.exr"))[..., :3]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(tmp, "matnet_scratch.npz")
+        tr.save_checkpoint(path, net, PATH8_STEPS,
+                           config=net.encoder_config(), half=True)
+        size = os.path.getsize(path) / 1e6
+        got = MatNetInference(weights_path=path).infer_image(photo)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rounded = copy.deepcopy(net)
+    with torch.no_grad():
+        for p in rounded.parameters():
+            p.copy_(p.half().float())
+    ref = MatNetInference(params=rounded.state_dict(),
+                          net=copy.deepcopy(rounded)).infer_image(photo)
+    log(f"  checkpoint {size:.1f} MB")
+    _map_errors(got, ref, "reloaded f16 checkpoint vs the f16-rounded net",
+                1e-4)
+
+
+def disk_route(torch, _lib):
+    """``generate`` (2 scenes x 2 at 70x98, 8 spp, "exact" march) into a
+    temporary dir, then ``train`` (vit-b, seeded, frozen, batch 2, lr 3e-4,
+    6 epochs) on it at PyTorch's default flags: the mean of the last 3
+    losses under 0.9 of the first, frozen tensors unchanged. Returns the
+    launches of ``generate``."""
+    from materialist_tpu_torch.cli.make_mg_dataset import generate
+    from materialist_tpu_torch.models import train as tr
+    from materialist_tpu_torch.models.dpt import MaterialNet
+    log("[path 8e] generate 2x2 tuples at 70x98, 8 spp; train the vit-b "
+        "net (seeded, frozen) 6 epochs on them")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mg_")
+    try:
+        _, launches, sec = _drive(torch, _lib, lambda: generate(
+            tmp, 2, 2, 70, 98, 8, seed=SEED))
+        _path8_counters(launches, ("shade_bounce_fwd", "row_gather",
+                                   "env_sample_dir", "env_pdf_dir",
+                                   "env_lookup_bilinear"), "generate")
+        log(f"  generate {sec:.2f} s")
+        params = MaterialNet(
+            generator=torch.Generator().manual_seed(SEED)).state_dict()
+        torch.cuda.reset_peak_memory_stats()
+        with tf32_defaults(torch):
+            t0 = time.perf_counter()
+            net, hist = tr.train(tmp, params=params, epochs=6, batch_size=2,
+                                 lr=3e-4, im_hw=(70, 98), log_every=4,
+                                 return_history=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    train = tr.trainable_names(net)
+    frozen_same = all(torch.equal(v.cpu(), params[k])
+                      for k, v in net.state_dict().items() if k not in train)
+    last = sum(hist[-3:]) / 3
+    log(f"  losses {[round(h, 4) for h in hist]}; last 3 mean {last:.4f} "
+        f"(< 0.9 x first {hist[0]:.4f}); frozen unchanged {frozen_same}; "
+        f"{len(hist)} steps in {sec:.2f} s = {sec / len(hist) * 1e3:.1f} ms "
+        f"per step (host clock, loading included); peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if len(hist) != 12 or not all(math.isfinite(h) for h in hist):
+        fail("path 8: train gave no 12 finite losses")
+    if not (last < 0.9 * hist[0] and frozen_same):
+        fail("path 8: the disk route's loss did not fall, or a frozen "
+             "tensor moved")
     return launches
 
 

@@ -5,7 +5,11 @@ Load + center-crop-resize the input to 512², sRGB→linear for PNG/JPG,
 predict albedo, roughness, metallic, normal and depth with MaterialNet,
 write the prediction files + config.json, build the depth mesh PLY if
 absent, then run the alternating envmap/material optimization, all on the
-card. ``--opt_src skip --opt_order skip`` resumes instead: it reloads
+card. The PLY goes where the JAX package puts it,
+``os.path.join(output_dir, f"{save_name}.ply")``: ``output_dir/NAME.ply``
+for a plain name, but ``/abs/OUT.ply`` beside the output dir for an
+absolute ``--save_name /abs/OUT`` and ``output_dir/a/b.ply`` for a nested
+``a/b``; a mesh already there is not rebuilt. ``--opt_src skip --opt_order skip`` resumes instead: it reloads
 best_results/ and depthPred.exr from the output dir and predicts nothing.
 
 Usage: python -m materialist_tpu_torch.cli.inverse --img_inverse_path
@@ -111,7 +115,7 @@ def inverse_image(img_inverse_path, save_name, opt_src, opt_order,
             warnings.warn("No mask found; continuing without mask")
             use_mask = False
 
-    mesh_path = os.path.join(output_dir, f"{os.path.basename(save_name)}.ply")
+    mesh_path = os.path.join(output_dir, f"{save_name}.ply")
     mesh_mask_path = os.path.join(output_dir, "mesh_mask.png")
     mesh_mask = None
     if os.path.exists(mesh_mask_path):

@@ -26,6 +26,12 @@ MaterialNet comes by three routes, each ending in the state dict of
 - ``load_matnet_params``: a reference ``.pth`` from an explicit path or
   ``$MATNET_WEIGHTS`` (the published checkpoint is HuggingFace
   ``Lez/MatNet``, ``matnet_weights.pth``; nothing is downloaded).
+
+``matnet_to_flax`` goes back: the port's state dict to the JAX package's
+Flax tree, which ``models.train.save_checkpoint`` writes in the native
+``.npz`` layout so that both packages load what the port trains.
+``lpips_from_flax`` carries the JAX package's LPIPS parameters to
+``models.lpips.LPIPS``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import re
 import numpy as np
 import torch
 
+from materialist_tpu_torch.models.lpips import LPIPS, conv_keys
 from materialist_tpu_torch.render.scene import GBuffer, Materials
 
 
@@ -116,6 +123,73 @@ def matnet_from_flax(tree) -> dict:
             a = a.T
         name = ".".join(_rename(p) for p in path)
         sd[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+# the port's two-part module paths that are one Flax module name
+_FLAX_JOINS = {"blocks": "block{}", "projects": "project{}",
+               "resize_layers": "resize{}", "output_conv2": "output_conv2_{}"}
+_RCU = re.compile(r"^resConfUnit(\d)$")
+
+
+def _flax_path(key: str, ndim: int):
+    parts, out, i = key.split("."), [], 0
+    while i < len(parts):
+        p = parts[i]
+        if p in _FLAX_JOINS:
+            out.append(_FLAX_JOINS[p].format(parts[i + 1]))
+            i += 2
+            continue
+        if p == "patch_embed":           # patch_embed.proj → patch_embed
+            out.append(p)
+            i += 2
+            continue
+        if p != "scratch":
+            out.append(_RCU.sub(r"rcu\1", p))
+        i += 1
+    if out[-1] == "weight":
+        out[-1] = "kernel" if ndim >= 2 else "scale"
+    return out
+
+
+def matnet_to_flax(sd) -> dict:
+    """The state dict of ``models.dpt.MaterialNet`` → the JAX package's
+    MaterialNet parameters (nested dict of float32 numpy arrays): the
+    inverse of ``matnet_from_flax``. Dead reference keys are skipped."""
+    tree = {}
+    for key, t in sd.items():
+        if _is_dead(key):
+            continue
+        a = t.detach().cpu().numpy().astype(np.float32)
+        path = _flax_path(key, a.ndim)
+        if path[-1] == "kernel" and a.ndim == 4:
+            a = a.transpose((2, 3, 0, 1) if _BLOCK_UPSAMPLE.match(path[-2])
+                            else (2, 3, 1, 0))
+        elif path[-1] == "kernel" and a.ndim == 2:
+            a = a.T
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def lpips_from_flax(params) -> dict:
+    """The JAX package's LPIPS parameters (``{"net": {"conv{i}": {kernel,
+    bias}}, "lin{i}": (C,)}``) → the full state dict of
+    ``models.lpips.LPIPS``, the scaling buffers and ``lins`` aliases
+    included, so that it loads strictly."""
+    sd = dict(LPIPS().state_dict())
+    for i, prefix in enumerate(conv_keys()):
+        conv = params["net"][f"conv{i}"]
+        sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        sd[prefix + ".bias"] = torch.from_numpy(
+            np.array(conv["bias"], np.float32))
+    for i in range(5):
+        w = torch.from_numpy(np.array(params[f"lin{i}"], np.float32))
+        sd[f"lin{i}.model.1.weight"] = sd[f"lins.{i}.model.1.weight"] = \
+            w.reshape(1, -1, 1, 1)
     return sd
 
 

@@ -128,13 +128,27 @@ class MaterialNet(nn.Module):
                  embed_dim: int = 768, enc_depth: int = 12,
                  num_heads: int = 12, generator: torch.Generator = None):
         super().__init__()
+        self.features = features
+        self.out_channels = tuple(out_channels)
         self.layer_idx = tuple(layer_idx)
+        self.embed_dim, self.enc_depth = embed_dim, enc_depth
+        self.num_heads = num_heads
         self.pretrained = DINOv2(embed_dim=embed_dim, depth=enc_depth,
                                  num_heads=num_heads, generator=generator)
         self.depth_head = DPTHead(embed_dim, features, out_channels, "depth",
                                   generator=generator)
         self.material_head = DPTHead(embed_dim, features, out_channels,
                                      "material", generator=generator)
+
+    def encoder_config(self) -> dict:
+        """The constructor's keyword arguments (the generator aside): what
+        a checkpoint stores so that inference rebuilds this net."""
+        return {"features": self.features,
+                "out_channels": self.out_channels,
+                "layer_idx": self.layer_idx,
+                "embed_dim": self.embed_dim,
+                "enc_depth": self.enc_depth,
+                "num_heads": self.num_heads}
 
     def forward(self, x):
         """x: (B, 3, H, W) image, H and W multiples of 14. Returns a dict

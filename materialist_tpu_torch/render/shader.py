@@ -236,9 +236,13 @@ def _fused_shade_eligible(cfg: RenderConfig, bsdf, envmap) -> bool:
 
 def march_tables(cfg: RenderConfig, gbuf: GBuffer):
     """March tables of the scene geometry (shared by every chunk): the
-    march kernels' own factors for "fused", the config's for "mip";
-    "exact" reads only their depth and validity maps."""
+    march kernels' own factors for "fused", the config's for "mip".
+    "exact" reads only the depth and validity maps, and builds no mip (as
+    the JAX package, it takes any film size)."""
     _check_cfg(cfg)
+    if cfg.march_impl == "exact":
+        return mk.MarchTables(*_march_geometry(cfg, gbuf), None, None, None,
+                              0, 0)
     if cfg.march_impl == "mip":
         return mk.march_tables(*_march_geometry(cfg, gbuf),
                                mip_f=cfg.mip_factor, fine_f=cfg.fine_factor)

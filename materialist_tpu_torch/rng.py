@@ -71,9 +71,48 @@ def bits(k: torch.Tensor, shape, device=None) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(k: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` in float32: the 23 high bits as
-    the mantissa of a float in [1, 2), minus 1."""
+def uniform(k: torch.Tensor, shape, device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=minval, maxval=maxval)`` in
+    float32: the 23 high bits as the mantissa of a float in [1, 2), minus
+    1, then ``max(minval, f * (maxval - minval) + minval)`` with the
+    product and sum fused into one rounding, as XLA's CPU backend
+    contracts them (exact in float64: the product has 48 bits)."""
     b = bits(k, tuple(shape), device)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if minval == 0.0 and maxval == 1.0:
+        return torch.clamp_min(f, 0.0)
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = torch.tensor(maxval, dtype=torch.float32) - lo
+    out = (f.double() * span.double() + lo.double()).float()
+    return torch.clamp_min(out, float(lo))
+
+
+def _mul32(a, b):
+    """(a · b) mod 2³² of uint32 values held in int64, in 16-bit halves
+    so that no product leaves int64."""
+    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32): two
+    32-bit draws from ``split(k)`` combined as (hi mod span) · (2³² mod
+    span) + (lo mod span), mod span, in uint32 arithmetic."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError("randint takes int32 bounds")
+    k1, k2 = split(k)
+    hi = bits(k1, tuple(shape), device)
+    lo = bits(k2, tuple(shape), device)
+    span = (maxval - minval) & _M if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & _M) % span     # uint32 product wraps
+    off = (_mul32(hi % span, mult) + lo % span) & _M
+    return (minval + off % span).to(torch.int32)
+
+
+def bernoulli(k: torch.Tensor, p: float = 0.5, shape=(),
+              device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` (float32 ``p``):
+    ``uniform(k, shape) < p``."""
+    return uniform(k, shape, device) < torch.tensor(p, dtype=torch.float32)

@@ -394,3 +394,73 @@ def test_exact_march_card_against_cpu(card, case, shadow_only, vectorized):
         or not bool(both.any())
     torch.testing.assert_close(hk.t.cpu()[both], hc.t[both], rtol=1e-4,
                                atol=1e-4)
+
+
+def test_frozen_train_step_card_against_cpu(card):
+    """One step of the frozen recipe (lr 1e-4) of a tiny MaterialNet at
+    28×42, batch 2, TF32 off, from the same weights and batch on the card
+    and on the CPU: loss terms within 1e-4 relative, each trainable
+    gradient within 1e-3 of its tensor's largest, parameters after the
+    step equal to AdamW's first step on each device's own gradient, and
+    within 1e-5 across devices where the gradients' difference pins that
+    step (chip_smoke.py path 8's bounds)."""
+    import copy
+
+    from materialist_tpu_torch.models.dpt import MaterialNet
+    from materialist_tpu_torch.models import train as tr
+
+    g = torch.Generator().manual_seed(0)
+    net = MaterialNet(features=16, out_channels=(8, 16, 32, 64),
+                      layer_idx=(0, 1, 2, 3), embed_dim=48, enc_depth=4,
+                      num_heads=2, generator=g)
+    with torch.no_grad():
+        net.depth_head.scratch.output_conv2[2].bias += 1.0
+    n = torch.randn((2, 3, 28, 42), generator=g)
+    batch = {"im": torch.rand((2, 3, 28, 42), generator=g),
+             "albedo": torch.rand((2, 3, 28, 42), generator=g),
+             "roughness": torch.rand((2, 1, 28, 42), generator=g),
+             "metallic": torch.rand((2, 1, 28, 42), generator=g),
+             "normal": n / n.norm(dim=1, keepdim=True),
+             "depth": 0.5 + 4 * torch.rand((2, 1, 28, 42), generator=g)}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", card):
+            m = copy.deepcopy(net).to(dev)
+            step = tr.make_train_step(m, tr.make_optimizer(m, 1e-4))
+            losses = step({k: v.to(dev) for k, v in batch.items()})
+            out[str(dev)] = (losses, m)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (lc, mc), (lg, mg) = out["cpu"], out[str(card)]
+    for k in lc:
+        assert abs(float(lg[k]) - float(lc[k])) <= 1e-4 * abs(float(lc[k])), k
+    pc, pg = dict(mc.named_parameters()), dict(mg.named_parameters())
+    for k in tr.trainable_names(mc):
+        ref = pc[k].grad
+        err = float((pg[k].grad.cpu() - ref).abs().max())
+        assert err <= 1e-3 * float(ref.abs().max()), k
+    # AdamW's first step is p(1 - lr·wd) - lr·g/(|g| + eps): held to that
+    # on each device; across devices within 1e-5 where the gradients'
+    # difference δ pins it (|g| > 2δ, g² > 10·eps·δ), 2·lr elsewhere
+    train = tr.trainable_names(mc)
+    p0 = net.state_dict()
+    for k, v in mc.state_dict().items():
+        vg = mg.state_dict()[k].cpu()
+        d = (vg - v).abs()
+        if k in train:
+            gc, gg = pc[k].grad, pg[k].grad.cpu()
+            for p1, gr in ((v, gc), (vg, gg)):
+                want = p0[k] * (1 - 1e-6) - 1e-4 * gr / (gr.abs() + tr.EPS)
+                assert float((p1 - want).abs().max()) <= 1e-7, k
+            delta = float((gg - gc).abs().max())
+            free = (gc.abs() <= 2 * delta) | (gc * gc <= 10 * tr.EPS * delta)
+            assert float(torch.cat([d[free], d.new_zeros(1)]).max()) \
+                <= 2.2e-4, k
+            d = d[~free]
+        assert float(torch.cat([d.flatten(), d.new_zeros(1)]).max()) \
+            <= 1e-5, k

@@ -136,6 +136,58 @@ def test_predict_branch_matches_jax(tmp_path, monkeypatch):
     assert 0 <= mat_t["albedo"].min() and mat_t["albedo"].max() <= 1
 
 
+@pytest.mark.parametrize("kind", ["absolute", "nested"])
+def test_mesh_ply_path_matches_jax(tmp_path, monkeypatch, kind):
+    """The resume branch of both packages' inverse CLI writes the depth
+    mesh to ``os.path.join(output_dir, f"{save_name}.ply")``: beside the
+    output dir for an absolute ``--save_name /abs/OUT``, under
+    ``output_dir/a/`` for a nested ``a/b``; a mesh already there is kept."""
+    from materialist_tpu.cli import inverse as jinv
+    from materialist_tpu_torch.cli import inverse as tinv
+    from materialist_tpu_torch.io import exr as exr_io
+    from torch_scene_dirs import write_scene
+
+    r = np.random.default_rng(0)
+    res = 512
+    depth = (2.0 + 0.3 * r.uniform(size=(res, res))).astype(np.float32)
+    maps = (r.uniform(0.2, 0.9, (res, res, 3)), r.uniform(0.2, 0.9,
+                                                          (res, res, 1)),
+            r.uniform(0.0, 0.5, (res, res, 1)),
+            r.uniform(0.1, 2.0, (16, 32, 3)))
+    monkeypatch.setattr(tinv, "optimize", lambda *a, **k: {})
+    monkeypatch.setattr(jinv, "optimize", lambda *a, **k: {})
+    written = {}
+    for tag in ("port", "jax"):
+        root = tmp_path / tag
+        if kind == "absolute":
+            save_name, save_path = str(root / "OUT"), None
+            out_dir = root / "OUT"
+        else:
+            save_name, save_path = "a/b", str(root)
+            out_dir = root / "a" / "b"
+            (out_dir / "a").mkdir(parents=True)
+        write_scene(str(out_dir), depth, *maps)
+        img = str(out_dir / "gt_image.exr")
+        exr_io.write(img, r.uniform(size=(res, res, 3)).astype(np.float32))
+        if tag == "port":
+            port_args = ["--img_inverse_path", img, "--save_name", save_name,
+                         "--opt_src", "skip", "--opt_order", "skip",
+                         "--device", "cpu"] + (
+                             ["--save_path", save_path] if save_path else [])
+            tinv.main(port_args)
+        else:
+            jinv.inverse_image(img, save_name, "skip", ["skip"],
+                               save_path=save_path)
+        written[tag] = sorted(str(p.relative_to(root))
+                              for p in root.rglob("*.ply"))
+    want = ["OUT.ply"] if kind == "absolute" else ["a/b/a/b.ply"]
+    assert written["port"] == written["jax"] == want
+    mesh = tmp_path / "port" / want[0]
+    stamp = mesh.stat().st_mtime_ns
+    tinv.main(port_args)
+    assert mesh.stat().st_mtime_ns == stamp
+
+
 @pytest.mark.parametrize("kw", [{"compact_caps": (0.5,)},
                                 {"march_impl": "mip"},
                                 {"march_impl": "exact"}],

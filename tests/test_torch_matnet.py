@@ -34,6 +34,7 @@ from materialist_tpu_torch.models import dinov2 as tdino
 from materialist_tpu_torch.models import dpt as tdpt
 from materialist_tpu_torch.models import matnet as tmatnet
 from materialist_tpu_torch.ops import resize as tresize
+from torch_matnet_common import seeded_params as _seeded_params
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,27 +52,6 @@ def _nchw(x_nhwc):
 
 def _nhwc(x_nchw):
     return x_nchw.detach().numpy().transpose(0, 2, 3, 1)
-
-
-def _seeded_params(module, seed, *args):
-    """Parameters for ``module.init(key, *args)``'s tree, made from a
-    seed with numpy (the shapes come from ``jax.eval_shape``, so no init
-    runs): kernels N(0, 1/fan_in), LayerNorm scales and LayerScale gammas
-    1 + N(0, 0.05²), everything else N(0, 0.05²). No bias is 0 and no
-    scale 1, so a transposed or misplaced leaf shows."""
-    rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
-                                                *args))["params"]
-
-    def fill(path, s):
-        name = path[-1].key
-        if name == "kernel":
-            return rng.normal(0, 1 / np.sqrt(np.prod(s.shape[:-1])),
-                              s.shape).astype(np.float32)
-        base = 1.0 if name in ("scale", "gamma") else 0.0
-        return (base + rng.normal(0, 0.05, s.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _rel_err(got, ref):
