@@ -65,6 +65,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    flags (A–E must all launch after the prediction; every prediction
    file, config.json, the PLY and best_results/ must be written, and its
    maps lie inside the recorded maps' bounds);
+7. path 8, training: MaterialNet's training data rendered on the card
+   and the trainers' steps (``train_path``);
+8. path 9, the multi-device layer on photo_e2e at the main path's width
+   (``multi_device_path``): one nccl rank against the unsharded render
+   and step; two gloo ranks on the one card through the four asserts of
+   ``parallel/dryrun.py``; ``opt/accum.py`` against one backward;
 
 then prints one JSON line with each kernel's numbers and, last, the
 device line. Any failed check exits nonzero before the JSON lines.
@@ -216,6 +222,7 @@ def main():
     cli_run()
     launches["path 7"] = predict_path(torch, _lib)
     launches["path 8"], launches["path 8 generate"] = train_path(torch, _lib)
+    launches["path 9"] = multi_device_path(torch, _lib, caps, main_launches)
 
     for k in kernels:
         k["counter_name"] = k["counter"]
@@ -227,7 +234,7 @@ def main():
         k["launches_by_path"] = {
             p: launches[p][k["counter_name"]]
             for p in ("path 4", "path 5", "path 6", "path 7", "path 8",
-                      "path 8 generate")}
+                      "path 8 generate", "path 9")}
         k.pop("counter_name")
     log("kernels: " + ", ".join(
         f"{k['name']}={'ok' if k['ok'] else 'FAIL'}" for k in kernels))
@@ -2372,6 +2379,243 @@ def disk_route(torch, _lib):
         fail("path 8: the disk route's loss did not fall, or a frozen "
              "tensor moved")
     return launches
+
+
+# ---------------------------------------------------- path 9: multi-device
+
+def _photo_scene_arrays():
+    """photo_e2e as the numpy scene of ``parallel/dryrun.py``: depth,
+    best_results maps and envmap, and the photo as the target."""
+    from materialist_tpu_torch.io import image as image_io
+    d = os.path.join(REPO, "output_imgs", "runs", "photo_e2e")
+    mat, depth = _scene_inputs(d)
+    return dict(depth=depth, flip_depth=True, albedo=mat["albedo"],
+                roughness=mat["roughness"], metallic=mat["metallic"],
+                envmap=image_io.read(os.path.join(d, "best_results",
+                                                  "envmap.hdr")),
+                gt=mat["gt_image"])
+
+
+def _max_rel(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _path9a_rank(dev, scene, cfg_fields):
+    """Path 9a in its rank (world 1, nccl): the spp-sharded render and
+    train step against the unsharded ones, the unsharded step twice.
+    Returns numbers only."""
+    import torch
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.ops.kernels import _lib
+    from materialist_tpu_torch.parallel import dryrun
+    from materialist_tpu_torch.parallel.mesh import make_mesh
+    from materialist_tpu_torch.parallel.sharding import (
+        image_loss, make_sharded_train_step, spp_sharded_render)
+    from materialist_tpu_torch.render.shader import (RenderConfig,
+                                                     render_with_bsdf)
+    cfg = RenderConfig(**cfg_fields)
+    cam, gbuf, params, gt = dryrun.scene_on(scene, dev)
+    mesh = make_mesh(1, "spp", dev.type)
+    _lib.reset_launches()
+    key = rng.key(SEED + 7)
+    t0 = time.perf_counter()
+    img = spp_sharded_render(mesh, cfg, cam)(key, gbuf, params["mats"],
+                                             params["envmap"])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = render_with_bsdf(key, cfg, cam, gbuf, params["mats"],
+                               params["envmap"])
+    out = dict(render_equal=bool(torch.equal(img, ref)),
+               render_max_abs=float((img - ref).abs().max()),
+               render_s=render_s, image_shape=list(img.shape),
+               image_finite=bool(torch.isfinite(img).all()))
+
+    def step(sharded):
+        _, _, p, _ = dryrun.scene_on(scene, dev)
+        opt = torch.optim.Adam(dryrun.leaves(p), lr=1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if sharded:
+            loss = make_sharded_train_step(mesh, cfg, cam, opt)(
+                p, rng.key(SEED + 8), gbuf, gt)
+        else:
+            loss = image_loss(render_with_bsdf(
+                rng.key(SEED + 8), cfg, cam, gbuf, p["mats"], p["envmap"]),
+                gt)
+            loss.backward()
+            opt.step()
+            loss = loss.detach()
+        torch.cuda.synchronize()
+        lv = dryrun.leaves(p)
+        return (loss, [t.grad for t in lv], [t.detach() for t in lv],
+                time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev))
+
+    sh, r1, r2 = step(True), step(False), step(False)
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    out.update(
+        loss=float(sh[0]), loss_equal=bool(torch.equal(sh[0], r1[0])),
+        grads_equal=same(sh[1], r1[1]), params_equal=same(sh[2], r1[2]),
+        repeat_grads_equal=same(r1[1], r2[1]),
+        repeat_params_equal=same(r1[2], r2[2]),
+        grads_max_rel=max(_max_rel(a, b) for a, b in zip(sh[1], r1[1])),
+        repeat_grads_max_rel=max(_max_rel(a, b)
+                                 for a, b in zip(r2[1], r1[1])),
+        params_flip_frac=max(float(((a - b).abs() > 1e-5 + 1e-4 * b.abs())
+                                   .float().mean())
+                             for a, b in zip(sh[2], r1[2])),
+        grads_finite=all(bool(torch.isfinite(g).all()) for g in sh[1]),
+        step_s=[sh[3], r1[3], r2[3]], peak_bytes=[sh[4], r1[4], r2[4]],
+        launches=dict(_lib.LAUNCHES))
+    return out
+
+
+def multi_device_path(torch, _lib, caps, main_launches):
+    """Path 9 on photo_e2e at the main path's width (512², 64 spp, chunk
+    4, max_depth 4, the probed caps, film jitter 0.5):
+    9a, one nccl rank: the spp-sharded render and train step against the
+    unsharded ones (the render and the loss bit for bit; the gradients
+    and parameters bit for bit where two unsharded steps agree bit for
+    bit, else within 1e-5 of the gradient's maximum and JAX's flip
+    fraction of 1%);
+    9b, two gloo ranks on the one card with CUDA tensors: the four asserts
+    of ``parallel/dryrun.py``, each printed as it passes, and each rank's
+    peak memory;
+    9c, ``opt/accum.py``: the split accumulation in 4 groups of 16 spp
+    against one autograd backward through the mean of the same renders
+    (gradients within 1e-5 of their maximum), the peak memory of each.
+    Returns the launches of the three, summed over the ranks."""
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.opt.accum import \
+        make_accum_value_and_grad_split
+    from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
+    from materialist_tpu_torch.parallel import dryrun
+    from materialist_tpu_torch.parallel.sharding import image_loss
+    from materialist_tpu_torch.render import shader
+
+    scene = _photo_scene_arrays()
+    cfg_fields = _render_cfg(InverseOptions())._replace(
+        compact_caps=tuple(caps))._asdict()
+    log(f"[path 9] multi-device layer on photo_e2e at 512x512x"
+        f"{cfg_fields['spp']}spp, chunk {cfg_fields['chunk']}, max_depth "
+        f"{cfg_fields['max_depth']}, caps {cfg_fields['compact_caps']}")
+    torch.cuda.empty_cache()
+    total = {k: 0 for k in _lib.LAUNCHES}
+
+    def add(launches):
+        for k, v in (launches or {}).items():
+            total[k] += v
+
+    log("[path 9a] world 1, nccl: spp-sharded against unsharded")
+    t0 = time.perf_counter()
+    a = dryrun.run_ranks(_path9a_rank, 1, args=(scene, cfg_fields),
+                         device=DEV, timeout=600)[0]
+    add(a.pop("launches"))
+    log(f"  {time.perf_counter() - t0:.1f} s with the spawn; "
+        + json.dumps(a))
+    if not (a["render_equal"] and a["image_finite"]
+            and a["image_shape"] == [*scene["depth"].shape, 3]):
+        fail("path 9a: the spp-sharded render is not the unsharded one bit "
+             "for bit")
+    if not (a["loss_equal"] and a["grads_finite"]):
+        fail("path 9a: the spp-sharded step's loss is not the unsharded "
+             "one's")
+    if a["repeat_grads_equal"] and a["repeat_params_equal"]:
+        if not (a["grads_equal"] and a["params_equal"]):
+            fail("path 9a: the unsharded step repeats bit for bit but the "
+                 "spp-sharded step differs from it")
+        log("  9a: render, loss, gradients and parameters equal bit for bit")
+    else:
+        # the float atomics of the scatter-add adjoints sum in a varying
+        # order: two unsharded steps already differ in the last bits
+        if a["grads_max_rel"] > 1e-5 or a["params_flip_frac"] > 0.01:
+            fail("path 9a: the spp-sharded step's gradients or parameters "
+                 "are outside the bounds")
+        log("  9a: render and loss equal bit for bit; two unsharded steps "
+            f"differ by {a['repeat_grads_max_rel']:.2e} of the gradient's "
+            f"maximum, the sharded step by {a['grads_max_rel']:.2e}")
+
+    log("[path 9b] two gloo ranks on the one card, CUDA tensors: the four "
+        "asserts")
+    t0 = time.perf_counter()
+    res = dryrun.run_ranks(dryrun.dryrun_rank, 2,
+                           args=(scene, cfg_fields, 1e-3), device=DEV,
+                           timeout=900)
+    for r, out in enumerate(res):
+        add(out["launches"])
+        if len(out["lines"]) != 4 or out["foreign_modules"]:
+            fail(f"path 9b: rank {r} returned {out}")
+        LOG.extend(f"  rank {r}: {ln}" for ln in out["lines"])
+    log(f"  9b: four asserts passed on both ranks in "
+        f"{time.perf_counter() - t0:.1f} s with the spawn; peak memory per "
+        "rank GiB "
+        + ", ".join(f"{(o['peak_bytes'] or 0) / 2**30:.2f}" for o in res))
+
+    log("[path 9c] opt/accum.py: 4 groups of 16 spp against one backward")
+    dev = torch.device(DEV)
+    cfg = shader.RenderConfig(**dict(cfg_fields, spp=16))
+    n_groups = 4
+
+    def run():
+        cam, gbuf, p, gt = dryrun.scene_on(scene, dev)
+
+        def trace_fn(q, key):
+            return shader.trace_step_records(key, cfg, cam, gbuf, q["mats"],
+                                             q["envmap"])
+
+        def shade_fn(q, recs, key):
+            return shader.shade_from_records(key, recs, cfg, cam, gbuf,
+                                             q["mats"], q["envmap"])
+
+        def loss_of_img(img):
+            return image_loss(img, gt)
+
+        key = rng.key(SEED + 9)
+        out = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, grads = make_accum_value_and_grad_split(
+            trace_fn, shade_fn, loss_of_img, n_groups)(p, key)
+        torch.cuda.synchronize()
+        out["accum"] = (float(loss), time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated(dev))
+        g_acc = [*grads["mats"][:3], grads["envmap"]]
+        _, _, p, _ = dryrun.scene_on(scene, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        keys = rng.split(key, n_groups)
+        img = sum(shader.render_with_bsdf(keys[g], cfg, cam, gbuf,
+                                          p["mats"], p["envmap"])
+                  for g in range(n_groups)) / n_groups
+        loss = loss_of_img(img)
+        loss.backward()
+        torch.cuda.synchronize()
+        out["monolithic"] = (float(loss.detach()), time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated(dev))
+        out["grad_max_rel"] = [_max_rel(a, b.grad) for a, b in
+                               zip(g_acc, dryrun.leaves(p))]
+        return out
+
+    c, launches, _ = _drive(torch, _lib, run)
+    add(launches)
+    (l_a, s_a, pk_a), (l_m, s_m, pk_m) = c["accum"], c["monolithic"]
+    log(f"  accum loss {l_a:.7f}, {s_a:.2f} s, peak {pk_a / 2**30:.2f} GiB "
+        f"| monolithic loss {l_m:.7f}, {s_m:.2f} s, peak "
+        f"{pk_m / 2**30:.2f} GiB; gradient max |d| / max "
+        f"{['%.2e' % x for x in c['grad_max_rel']]} (bound 1e-5)")
+    if abs(l_a - l_m) > 1e-6 * abs(l_m) or max(c["grad_max_rel"]) > 1e-5:
+        fail("path 9c: the accumulation differs from the monolithic "
+             "backward")
+    missing = [k for k, v in main_launches.items() if v and not total[k]]
+    if missing:
+        fail(f"path 9 launched no {missing}")
+    log(f"  path 9 launches: { {k: v for k, v in total.items() if v} }")
+    return total
 
 
 if __name__ == "__main__":

@@ -37,6 +37,14 @@
 //  - a warp writes its 32 directions through a 96-float stage as three
 //    whole 128-byte lines instead of 96 stores 12 bytes apart.
 // env_pdf_dir and env_lookup_bilinear keep one query per thread.
+// env_pdf_dir moves 16 bytes a query but runs some 160 instructions for it
+// (atan2f, acosf, sinf and three IEEE divisions), so its instruction
+// stream, not its bytes, bounds it on this card, and a full grid of
+// 23-register threads keeps the most of them issuing: a version with
+// env_sample_dir's design (kQ queries in flight, a warp's directions as
+// three 128-byte lines through a shared stage) gave the same bits and
+// measured slower at every main-path shape (scripts/env_pdf_redesign.cu,
+// scripts/compare_env_pdf.py, PERF.md).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

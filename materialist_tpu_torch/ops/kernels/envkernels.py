@@ -170,6 +170,9 @@ def env_pdf_dir(m_pdf, c_pdf, d):
     _lib.expect(m_pdf, "m_pdf", torch.float32, (h,), dev)
     _lib.expect(c_pdf, "c_pdf", torch.float32, (h, w), dev)
     _lib.expect(df, "d", torch.float32, (m, 3), dev)
+    if h > ENV_AXIS_MAX or w > ENV_AXIS_MAX:
+        raise ValueError(f"env_pdf_dir: tables of {h}x{w}, at most "
+                         f"{ENV_AXIS_MAX} a side")
     pdf = torch.empty((m,), dtype=torch.float32, device=dev)
     if m:
         _lib.check(_lib.lib().env_pdf_dir_launch(

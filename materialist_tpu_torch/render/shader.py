@@ -19,7 +19,8 @@ are the JAX package's draws for the same key.
 
 ``march_impl="exact"`` marches the full-resolution depth map in plain
 tensor code (``screenspace.march``), as the JAX package does outside any
-kernel. Not ported yet: px-sharded film slices.
+kernel. A ``FilmSlice`` restricts the primary rays and the output to a
+range of film rows (the px-sharded renders of ``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,27 @@ class BounceRecord(NamedTuple):
     extras: tuple = None
 
 
+class FilmSlice(NamedTuple):
+    """Rows [row0, row0 + n_rows) of the film that a render call covers
+    (px sharding). The G-buffer, the material table, the march tables and
+    the compaction caps' fractions stay full-film: a secondary ray can
+    march anywhere, and the 3×3 geometry taps at a slice's edge read the
+    true neighbour rows. Only the primary rays and the output are
+    restricted. The estimator's streams are drawn at the slice's own
+    pixel count, as in the JAX package. ``None`` renders the whole film."""
+    row0: int
+    n_rows: int
+
+
+def _film_base(film, h: int, w: int):
+    """(pixel-id offset, local row count) of a FilmSlice or the full film."""
+    if film is None:
+        return 0, h
+    if film.n_rows < 1 or film.row0 < 0 or film.row0 + film.n_rows > h:
+        raise ValueError(f"{film} does not lie inside a film of {h} rows")
+    return film.row0 * w, film.n_rows
+
+
 def _check_cfg(cfg: RenderConfig) -> None:
     if cfg.march_impl not in ("fused", "mip", "exact"):
         raise ValueError(
@@ -159,18 +181,20 @@ def _stream_uniform(cfg: RenderConfig, key, s: int, n_loc: int, dims: int,
 
 
 def _primary_state(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
-                   s: int):
+                   s: int, film=None):
     """Continuous-AA primary vertex (box filter of halfwidth film_jitter):
-    bilinear, validity-weighted geometry at the jittered film position.
-    Returns (nrm_geo0, pos0, wo0, valid0), all (s, n, ...)."""
+    bilinear, validity-weighted geometry at the jittered film position,
+    the taps read from the full maps. Returns (nrm_geo0, pos0, wo0,
+    valid0), all (s, n_loc, ...) for the film rows of ``film``."""
     h, w = gbuf.dist.shape
-    n = h * w
+    off, n_rows = _film_base(film, h, w)
+    n = n_rows * w
     dev = gbuf.dist.device
     r = min(cfg.film_jitter, 0.5)
     jit = (_stream_uniform(cfg, rng.fold_in(key, 991), s, n, 2, dev)
            * 2.0 - 1.0) * r
     ju, jv = jit[..., 0], jit[..., 1]
-    base = torch.arange(n, dtype=torch.int32, device=dev)
+    base = torch.arange(off, off + n, dtype=torch.int32, device=dev)
     ub = base % w
     vb = base // w
     cu = ub.to(torch.float32) + 0.5 + ju
@@ -303,12 +327,16 @@ def _make_march_fns(cfg: RenderConfig, cam: Camera, tables):
 
 @torch.no_grad()
 def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
-                       mats: Materials, envmap, bsdf=None, tables=None):
+                       mats: Materials, envmap, bsdf=None, film=None,
+                       tables=None):
     """Decision pass of one chunk: sample all stochastic choices and
     resolve visibility. Returns one BounceRecord per bounce."""
     _check_cfg(cfg)
     h, w = gbuf.dist.shape
     n = h * w
+    off, n_rows = _film_base(film, h, w)
+    n_loc = n_rows * w
+    rows = slice(off, off + n_loc)
     s = cfg.chunk
     dev = gbuf.dist.device
     if bsdf is None:
@@ -327,8 +355,9 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     combo = torch.cat([table, dist_hi[:, None], (mdist - dist_hi)[:, None],
                        nrm_geo_flat], dim=-1)
 
-    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(s, n)
-    wo = gbuf.wo.reshape(n, 3).expand(s, n, 3)
+    idx = torch.arange(off, off + n_loc, dtype=torch.int32,
+                       device=dev).expand(s, n_loc)
+    wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
     fused = _fused_shade_eligible(cfg, bsdf, envmap)
     eh, ew = envmap.shape[0], envmap.shape[1]
     do_march, do_pair = _make_march_fns(cfg, cam, tables)
@@ -337,9 +366,9 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     # current bounce's arrays; film_idx maps each row of a compacted array
     # back to its (sample, pixel) slot of the chunk grid; pending holds
     # the extras of the next bounce's record
-    m0 = s * n
+    m0 = s * n_loc
     do_compact = bool(cfg.compact_caps)
-    base_alive = (gbuf.valid.reshape(n).expand(s, n)
+    base_alive = (gbuf.valid.reshape(n)[rows].expand(s, n_loc)
                   if do_compact or fused else None)
     film_idx = None
     pending = None
@@ -356,14 +385,15 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
         extras = pending
         pending = None
         if b == 0 and cfg.film_jitter > 0.0:
-            nrm_geo, pos, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s)
+            nrm_geo, pos, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s,
+                                                      film)
             if base_alive is not None:
                 base_alive = base_alive & valid0
-            blob = table
+            blob = table[rows]
         elif b == 0:
-            blob = table
-            nrm_geo = nrm_geo_flat
-            pos = gbuf.position.reshape(n, 3).expand(s, n, 3)
+            blob = table[rows]
+            nrm_geo = nrm_geo_flat[rows]
+            pos = gbuf.position.reshape(n, 3)[rows].expand(s, n_loc, 3)
         else:
             fetched = row_gather(combo, idx)
             blob = fetched[..., :k_blob]
@@ -378,9 +408,10 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
         nrm = (nrm_geo if cfg.use_mesh_normal
                else _normalize9(blob[..., 5:8]))
 
-        u1 = _stream_uniform(cfg, k_lobe, s, n, 1, dev)
-        u2 = _stream_uniform(cfg, k_uv, s, n, 2, dev)
-        u_nee = _stream_uniform(cfg, k_nee, s, n, 2, dev) if cfg.nee else None
+        u1 = _stream_uniform(cfg, k_lobe, s, n_loc, 1, dev)
+        u2 = _stream_uniform(cfg, k_uv, s, n_loc, 2, dev)
+        u_nee = (_stream_uniform(cfg, k_nee, s, n_loc, 2, dev) if cfg.nee
+                 else None)
         if film_idx is not None:
             # compacted bounce: the streams are drawn on the full grid
             # (the uncompacted estimator's values) and the surviving rays'
@@ -447,7 +478,7 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
             sel, count = compact_sel((hit.hit & base_alive).reshape(-1), cap)
             if film_idx is None:
                 film_src = torch.arange(m0, dtype=torch.int32,
-                                        device=dev).reshape(s, n)
+                                        device=dev).reshape(s, n_loc)
             else:
                 film_src = film_idx[None]
             f_hi, f_lo = _f32_exact_split(film_src)
@@ -472,25 +503,31 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
 
 
 def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
-                 gbuf: GBuffer, mats: Materials, envmap, bsdf=None):
-    """Replay pass of one chunk: the differentiable radiance (h, w, 3)
-    from the trace records (same key ⇒ the same primary state)."""
+                 gbuf: GBuffer, mats: Materials, envmap, bsdf=None,
+                 film=None):
+    """Replay pass of one chunk: the differentiable radiance (n_rows, w, 3)
+    of the film rows of ``film`` (default: all of them) from the trace
+    records (same key ⇒ the same primary state)."""
     h, w = gbuf.dist.shape
     n = h * w
+    off, n_rows = _film_base(film, h, w)
+    n_loc = n_rows * w
+    rows = slice(off, off + n_loc)
     s = cfg.chunk
     dev = gbuf.dist.device
     if bsdf is None:
         bsdf = bsdf_mod.disney(mats)
     nrm_table = gbuf.normal_geo.reshape(n, 3).detach()
-    valid = gbuf.valid.reshape(n)
-    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(s, n)
-    wo = gbuf.wo.reshape(n, 3).expand(s, n, 3)
-    alive = valid.expand(s, n)
-    throughput = torch.ones((s, n, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((s, n, 3), dtype=torch.float32, device=dev)
+    valid = gbuf.valid.reshape(n)[rows]
+    idx = torch.arange(off, off + n_loc, dtype=torch.int32,
+                       device=dev).expand(s, n_loc)
+    wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
+    alive = valid.expand(s, n_loc)
+    throughput = torch.ones((s, n_loc, 3), dtype=torch.float32, device=dev)
+    radiance = torch.zeros((s, n_loc, 3), dtype=torch.float32, device=dev)
 
     if cfg.sky_background:
-        sky = em.lookup_bilinear(envmap, -gbuf.wo.reshape(n, 3))
+        sky = em.lookup_bilinear(envmap, -gbuf.wo.reshape(n, 3)[rows])
         radiance = radiance + torch.where(valid[None, :, None], 0.0,
                                           sky[None])
 
@@ -504,7 +541,7 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
         return -_normalize9(w_prev)
 
     use_fused = _fused_shade_eligible(cfg, bsdf, envmap)
-    m0 = s * n
+    m0 = s * n_loc
     film_rad = None   # (m0, 3) radiance of the compacted bounces
     for b in range(cfg.max_depth - 1):
         rec = records[b]
@@ -530,12 +567,13 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
         if sel is not None and not packed:
             wo = prev_dir(records[b - 1].wi, sel)
         if b == 0 and cfg.film_jitter > 0.0:
-            nrm_geo, _, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s)
-            blob = bsdf.table
+            nrm_geo, _, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s,
+                                                    film)
+            blob = bsdf.table[rows]
             alive = alive & valid0
         elif b == 0:
-            blob = bsdf.table
-            nrm_geo = nrm_table
+            blob = bsdf.table[rows]
+            nrm_geo = nrm_table[rows]
         elif rec.blob is not None and bsdf.gather_reuse is not None:
             # rows fetched by the trace: free forward, C′ adjoint
             blob = bsdf.gather_reuse(idx, rec.blob.to(torch.float32))
@@ -602,10 +640,10 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
         idx = rec.idx
 
     if film_rad is not None:
-        radiance = radiance + film_rad.reshape(s, n, 3)
+        radiance = radiance + film_rad.reshape(s, n_loc, 3)
     img = torch.mean(radiance, dim=0)
     return torch.nan_to_num(img, nan=0.0, posinf=0.0,
-                            neginf=0.0).reshape(h, w, 3)
+                            neginf=0.0).reshape(n_rows, w, 3)
 
 
 def n_chunks_of(cfg: RenderConfig) -> int:
@@ -613,14 +651,15 @@ def n_chunks_of(cfg: RenderConfig) -> int:
 
 
 def trace_step_records(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
-                       mats: Materials, envmap, bsdf=None, keys=None):
+                       mats: Materials, envmap, bsdf=None, film=None,
+                       keys=None):
     """Decision/visibility pass of a full step: per-chunk records. Nothing
     in the result carries gradient."""
     if keys is None:
         keys = rng.split(key, n_chunks_of(cfg))
     tables = march_tables(cfg, gbuf)
     return tuple(_trace_chunk_paths(keys[i], cfg, cam, gbuf, mats, envmap,
-                                    bsdf, tables)
+                                    bsdf, film, tables)
                  for i in range(n_chunks_of(cfg)))
 
 
@@ -669,24 +708,27 @@ def probe_compact_caps(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
 
 def shade_from_records(key, records, cfg: RenderConfig, cam: Camera,
                        gbuf: GBuffer, mats: Materials, envmap, bsdf=None,
-                       keys=None):
-    """Differentiable radiance (h, w, 3): the mean of the chunk shades."""
+                       film=None, keys=None):
+    """Differentiable radiance (n_rows, w, 3): the mean of the chunk
+    shades."""
     n_chunks = n_chunks_of(cfg)
     if keys is None:
         keys = rng.split(key, n_chunks)
     total = None
     for i in range(n_chunks):
         img = _shade_chunk(keys[i], records[i], cfg, cam, gbuf, mats, envmap,
-                           bsdf)
+                           bsdf, film)
         total = img if total is None else total + img
     return total / n_chunks
 
 
 def render_with_bsdf(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
-                     mats: Materials, envmap, bsdf=None, keys=None):
+                     mats: Materials, envmap, bsdf=None, film=None,
+                     keys=None):
     """Trace then shade with an arbitrary BSDF closure set, chunk by
     chunk: a chunk's records are dropped after its shade unless the graph
-    of a differentiable render holds on to them."""
+    of a differentiable render holds on to them. The image is (n_rows, w,
+    3) for a FilmSlice, else (h, w, 3)."""
     n_chunks = n_chunks_of(cfg)
     if keys is None:
         keys = rng.split(key, n_chunks)
@@ -694,9 +736,9 @@ def render_with_bsdf(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     total = None
     for i in range(n_chunks):
         records = _trace_chunk_paths(keys[i], cfg, cam, gbuf, mats, envmap,
-                                     bsdf, tables)
+                                     bsdf, film, tables)
         img = _shade_chunk(keys[i], records, cfg, cam, gbuf, mats, envmap,
-                           bsdf)
+                           bsdf, film)
         total = img if total is None else total + img
     return total / n_chunks
 

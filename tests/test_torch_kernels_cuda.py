@@ -349,11 +349,44 @@ def test_env_sample_dir_edge_uniforms(card):
     assert torch.isfinite(wi).all() and torch.isfinite(pdf).all()
 
 
+ENV_EDGE_DIRS = [[0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1],
+                 [-1e-7, 0, 1], [1e-7, 0, 1], [-1e-7, 0, -1], [1e-7, 0, -1],
+                 [0, 0.5, 0.5]]
+
+
+@pytest.mark.parametrize("m", [1, 31, 33, 1048576])
+def test_env_pdf_dir_shapes(card, m):
+    """Kernel D′ against its plain version on seeded unit directions, the
+    first of them the poles (dy = ±1) and both sides of the seams at
+    dx = 0 (dz > 0 and dz < 0), from a start 12 bytes past an aligned
+    one. A direction within an ulp of a texel border may fall in the
+    neighbouring texel (torch divides by a scalar on the card as a multiply
+    by its reciprocal, the kernel divides), so at most 1 query in 10,000
+    may differ, as chip_smoke.py allows; the edge directions may not."""
+    g = torch.Generator(device=card).manual_seed(8)
+    env = (torch.rand((16, 32, 3), generator=g, device=card) + 0.05) ** 4
+    smp = em.build_sampler(env)
+    d = torch.nn.functional.normalize(
+        torch.randn((m + 1, 3), generator=g, device=card), dim=-1)
+    edge = torch.tensor(ENV_EDGE_DIRS, device=card)[:m]
+    d[1:1 + len(edge)] = edge
+    d = d.reshape(-1)[3:].reshape(m, 3)
+    got = ek.env_pdf_dir(smp.m_pdf, smp.c_pdf, d)
+    ref = ek.env_pdf_dir_plain(smp.m_pdf, smp.c_pdf, d)
+    assert tuple(got.shape) == (m, 1) and torch.isfinite(got).all()
+    within = ((got - ref).abs() <= 1e-5 * ref.abs() + 1e-6)[:, 0]
+    assert within[:len(edge)].all()
+    assert float(within.float().mean()) >= (0.9999 if m > 10000 else 1.0)
+
+
 def test_env_kernels_refuse_large_tables(card):
     big = torch.rand((65, 32), device=card)
     with pytest.raises(ValueError, match="at most"):
         ek.env_sample_dir(big[:, 0].contiguous(), big[:, 0].contiguous(),
                           big, big, torch.rand((8, 2), device=card))
+    with pytest.raises(ValueError, match="at most"):
+        ek.env_pdf_dir(big[:, 0].contiguous(), big,
+                       torch.rand((8, 3), device=card))
 
 
 @pytest.mark.parametrize("k", [15, 20])
