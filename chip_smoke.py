@@ -75,6 +75,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 then prints one JSON line with each kernel's numbers and, last, the
 device line. Any failed check exits nonzero before the JSON lines.
 Extra output goes to ``chiprun_out/chip_smoke.log``.
+
+``python3 chip_smoke.py --repeat-8c N [--seeds 1,2] [--deterministic]``
+runs only path 8c's training (300 steps at PyTorch's default TF32
+flags) N times from the same net, data and keys, then once for each
+other seed, and prints each run's loss ratio (``repeat_scratch``); it
+prints no result line.
 """
 
 from __future__ import annotations
@@ -177,6 +183,20 @@ def bound(bytes_moved, flops):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one GPU (see the module's docstring).")
+    ap.add_argument("--repeat-8c", type=int, default=0,
+                    help="run only path 8c's training, this many times")
+    ap.add_argument("--seeds", default="",
+                    help="with --repeat-8c: other seeds, once each (1,2)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --repeat-8c: torch.use_deterministic_"
+                         "algorithms(True, warn_only=True)")
+    args = ap.parse_args()
+    if args.deterministic:
+        # cuBLAS needs this before its first handle to be deterministic
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -203,6 +223,12 @@ def main():
     _lib.build(verbose=True)
     _lib.lib()
     log(f"build_s {time.perf_counter() - t0:.2f}")
+    if args.repeat_8c:
+        repeat_scratch(torch, _lib, args.repeat_8c,
+                       [int(x) for x in args.seeds.split(",") if x],
+                       args.deterministic)
+        _flush_log()
+        return
 
     main_launches, by_shape, caps = main_path(torch, _lib)
     log("launches by shape: " + json.dumps(
@@ -2301,6 +2327,65 @@ def scratch_on_card(torch, data):
     return net
 
 
+def repeat_scratch(torch, _lib, n, seeds, deterministic):
+    """Path 8c's training run at PyTorch's default TF32 flags, ``n`` times
+    from the seed-0 net, data and keys, then once from each of ``seeds``
+    (net and keys; the same data): each run's loss at steps 0, 100, 200,
+    299, the ratio of the last 30 to the first 10 (path 8c fails at 0.7),
+    each loss term's mean over the last 30, and whether its losses equal
+    the first run's bit for bit. The data
+    are rendered twice, to show whether they repeat bit for bit."""
+    import warnings
+    from materialist_tpu_torch import rng
+    from materialist_tpu_torch.cli import train_matnet_device as tdev
+    from materialist_tpu_torch.models import train as tr
+    log(f"[path 8c repeated] {n} runs at seed {SEED}, then seeds {seeds}; "
+        f"deterministic algorithms {'on (warn only)' if deterministic else 'off'}")
+    data = tdev.render_dataset(PATH8_TUPLES, PATH8_SPP, SEED)
+    again = tdev.render_dataset(PATH8_TUPLES, PATH8_SPP, SEED)
+    same = {k: bool(torch.equal(v, again[k])) for k, v in data.items()}
+    log(f"  the data rendered twice, equal bit for bit per key: {same}")
+    del again
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    at = (0, PATH8_STEPS // 3, 2 * PATH8_STEPS // 3, PATH8_STEPS - 1)
+    rows, first_run, seen = [], None, set()
+    for seed in [SEED] * n + list(seeds):
+        net = tdev.reduced_net(seed, DEV)
+        step = tdev.make_device_step(tr.scratch_step(net, 3e-4, PATH8_STEPS),
+                                     data, PATH8_BATCH)
+        names = []
+
+        def named(k, step=step):
+            out = step(k)
+            names[:] = list(out)
+            return out
+        t0 = time.perf_counter()
+        with tf32_defaults(torch), warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            losses, _, _ = _step_loop(torch, named, PATH8_STEPS,
+                                      rng.key(seed + 1))
+        seen.update(str(x.message).split("\n")[0][:160] for x in w)
+        total = losses[:, 0]
+        if seed == SEED and first_run is None:
+            first_run = total
+        ratio = float(total[-30:].mean()) / float(total[:10].mean())
+        row = dict(seed=seed, ratio=round(ratio, 4),
+                   at=[round(float(total[i]), 4) for i in at],
+                   last30={nm: round(float(v), 4) for nm, v in
+                           zip(names, losses[-30:].mean(0))},
+                   finite=bool(torch.isfinite(total).all()),
+                   equal_to_first=(seed == SEED
+                                   and bool(torch.equal(total, first_run))),
+                   s=round(time.perf_counter() - t0, 1))
+        rows.append(row)
+        log("  " + json.dumps(row))
+    ratios = [r["ratio"] for r in rows if r["seed"] == SEED]
+    log(f"  seed {SEED}: ratios {ratios}; over 0.7: "
+        f"{sum(r >= 0.7 for r in ratios)} of {len(ratios)}")
+    log(f"  warnings of the runs: {sorted(seen)}")
+
+
 def checkpoint_roundtrip(torch, net):
     """Save the trained net as the f16 checkpoint with its config, reload
     it through ``MatNetInference``'s npz route, and compare its maps on
@@ -2483,8 +2568,8 @@ def multi_device_path(torch, _lib, caps, main_launches):
     bit, else within 1e-5 of the gradient's maximum and JAX's flip
     fraction of 1%);
     9b, two gloo ranks on the one card with CUDA tensors: the four asserts
-    of ``parallel/dryrun.py``, each printed as it passes, and each rank's
-    peak memory;
+    of ``parallel/dryrun.py``, each printed as it passes, each rank's
+    peak memory, and its slice's cap utilization (a saturated cap fails);
     9c, ``opt/accum.py``: the split accumulation in 4 groups of 16 spp
     against one autograd backward through the mean of the same renders
     (gradients within 1e-5 of their maximum), the peak memory of each.
@@ -2550,6 +2635,13 @@ def multi_device_path(torch, _lib, caps, main_launches):
         if len(out["lines"]) != 4 or out["foreign_modules"]:
             fail(f"path 9b: rank {r} returned {out}")
         LOG.extend(f"  rank {r}: {ln}" for ln in out["lines"])
+        # the caps were probed on the whole film; a half-film slice with
+        # more live rays than the film's average could fill them
+        util = out["cap_util"]
+        log(f"  rank {r}: its slice's cap_util per bounce {util}")
+        if sorted(util) != [1, 2] or any(u >= 0.999 for u in util.values()):
+            fail(f"path 9b: a compaction cap of rank {r}'s slice saturated "
+                 f"or was not used: {util}")
     log(f"  9b: four asserts passed on both ranks in "
         f"{time.perf_counter() - t0:.1f} s with the spawn; peak memory per "
         "rank GiB "

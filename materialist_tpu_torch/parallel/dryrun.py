@@ -51,7 +51,9 @@ from materialist_tpu_torch.parallel.sharding import (
     px_sharded_render, spp_sharded_render)
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
 from materialist_tpu_torch.render.shader import (FilmSlice, RenderConfig,
-                                                 render_with_bsdf)
+                                                 compact_cap_utilization,
+                                                 render_with_bsdf,
+                                                 trace_step_records)
 
 
 def backend_for(device_type: str, world: int) -> str:
@@ -216,33 +218,10 @@ def foreign_modules():
                   or m.startswith("materialist_tpu."))
 
 
-def _optimizer_state(opt):
+def optimizer_state(opt):
+    """The tensors of a torch.optim optimizer's state, in a fixed order."""
     return [v for s in opt.state.values() for v in s.values()
             if torch.is_tensor(v)]
-
-
-def train_step_rank(dev, scene: dict, cfg_fields: dict, axis: str = "spp",
-                    lr: float = 1e-2, seed: int = 1):
-    """One spp- or px-sharded step with Adam(lr, eps 1e-8) from the
-    scene's maps, keyed by ``seed``. Returns this rank's loss, parameters,
-    all-reduced gradients and optimizer state (numpy), and whether those
-    are the same bit for bit on every rank."""
-    cfg = RenderConfig(**cfg_fields)
-    cam, gbuf, params, gt = scene_on(scene, dev)
-    opt = torch.optim.Adam(leaves(params), lr=lr, eps=1e-8)
-    make = (make_sharded_train_step if axis == "spp"
-            else make_px_sharded_train_step)
-    mesh = make_mesh(dist.get_world_size(), axis, dev.type)
-    loss = make(mesh, cfg, cam, opt, axis=axis)(params, rng.key(seed), gbuf,
-                                                gt)
-    state = _optimizer_state(opt)
-
-    def host(ts):
-        return [t.detach().cpu().numpy() for t in ts]
-    return {"loss": float(loss), "params": host(leaves(params)),
-            "grads": host(t.grad for t in leaves(params)),
-            "state": host(state),
-            "identical": identical_across_ranks(leaves(params) + state)}
 
 
 def dryrun_rank(dev, scene: dict, cfg_fields: dict, lr: float = 1e-3):
@@ -250,6 +229,10 @@ def dryrun_rank(dev, scene: dict, cfg_fields: dict, lr: float = 1e-3):
     spp // chunk must be a multiple of the world size). Rank 0 prints each
     as it passes. Returns {"lines": [...], "peak_bytes": int or None,
     "launches": the kernel launches of the four (None on the CPU),
+    "cap_util": {bounce: the largest live count / cap of this rank's own
+    slice in the px render and step} ({} without compaction caps: the
+    caps are fractions of the slice's rays, so a slice busier than the
+    film can fill them and drop rays, on both sides of asserts 2 and 4),
     "foreign_modules": [...]}."""
     world, rank = dist.get_world_size(), dist.get_rank()
     cfg = RenderConfig(**cfg_fields)
@@ -310,7 +293,7 @@ def dryrun_rank(dev, scene: dict, cfg_fields: dict, lr: float = 1e-3):
                              f"unsharded {loss_ref}")
     dmax, frac = assert_agree(p_sh["mats"].albedo, p_ref["mats"].albedo,
                               "spp-sharded step albedo", flip_frac=0.01)
-    if not identical_across_ranks(leaves(p_sh) + _optimizer_state(opt)):
+    if not identical_across_ranks(leaves(p_sh) + optimizer_state(opt)):
         raise AssertionError("the parameters or the optimizer state differ "
                              "between ranks after the spp-sharded step")
     say(f"3/4 spp-sharded train step == unsharded step (loss {loss:.6f}, "
@@ -348,8 +331,16 @@ def dryrun_rank(dev, scene: dict, cfg_fields: dict, lr: float = 1e-3):
     say(f"4/4 px-sharded train step on {world} ranks: loss={loss:.6f} "
         f"(sum of the slices' {loss_ref:.6f}), gradients == the sum of "
         f"the per-slice gradients (max |d| = {worst:.2e})")
+    cap_util = {}
+    with torch.no_grad():
+        for seed in (2, 3):
+            recs = trace_step_records(
+                rng.fold_in(rng.key(seed), rank), cfg, cam, gbuf, mats, env,
+                film=FilmSlice(rank * n_rows, n_rows))
+            for b, u in compact_cap_utilization(recs):
+                cap_util[b] = max(cap_util.get(b, 0.0), float(u))
     on_card = dev.type == "cuda"
-    return {"lines": lines,
+    return {"lines": lines, "cap_util": cap_util,
             "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
                            else None),
             "launches": dict(_lib.LAUNCHES) if on_card else None,

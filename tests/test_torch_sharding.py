@@ -9,12 +9,16 @@ in chunks of 1, max_depth 3, march steps 6/4, film jitter 0.5).
 - ``make_mesh_2d`` lays four ranks out as (px, spp) = divmod(rank, 2);
 - after an spp- and a px-sharded step, the parameters, gradients and
   Adam state are the same bit for bit on every rank;
-- the two-rank spp-sharded step equals the JAX package's
-  ``make_sharded_train_step`` on a 2-device mesh of the virtual CPU
-  devices, both with Adam (lr 1e-2, eps 1e-8), 2 spp, from the same key:
-  the loss within 5e-3 relative and the gradients (the JAX side's from
-  Adam's first moment) by ``check_grad``, as the step parity tests;
-  where the gradient is at least 5% of its maximum (so its sign is
+- the two-rank px-sharded render (4 spp in one chunk) equals the JAX
+  package's ``px_sharded_render`` on a 2-device "px" mesh of the virtual
+  CPU devices, from the same key, within the step-parity image bounds
+  (rtol / atol 2e-2);
+- the two-rank spp- and px-sharded steps equal the JAX package's
+  ``make_sharded_train_step`` and ``make_px_sharded_train_step`` on a
+  2-device mesh, both with Adam (lr 1e-2, eps 1e-8), 2 spp, from the
+  same key: the loss within 5e-3 relative and the gradients (the JAX
+  side's from Adam's first moment) by ``check_grad``, as the step parity
+  tests; where the gradient is at least 5% of its maximum (so its sign is
   settled) the parameter updates agree within 1e-3 of the learning rate.
 
 Every spawn has its own deadline of 120 s."""
@@ -28,18 +32,21 @@ import pytest
 from materialist_tpu.camera import Camera as JCam
 from materialist_tpu.ops.color import linear_to_srgb as jsrgb
 from materialist_tpu.parallel.mesh import make_mesh as jmake_mesh
-from materialist_tpu.parallel.sharding import make_sharded_train_step
+from materialist_tpu.parallel.sharding import (make_px_sharded_train_step,
+                                               make_sharded_train_step,
+                                               px_sharded_render)
 from materialist_tpu.render.scene import Materials as JMats
 from materialist_tpu.render.shader import RenderConfig as JCfg
 from materialist_tpu_torch.parallel import dryrun
 from materialist_tpu_torch.parallel.mesh import make_mesh
-from torch_rank_fns import mesh_2d_coords
+from torch_rank_fns import mesh_2d_coords, px_render_rank, train_step_rank
 from torch_step_common import (CFG, RES, check_grad, jax_fused_shade,
                                make_scene)
 
 DEADLINE = 120.0
 ASSERT_CFG = dict(CFG, chunk=1)
 STEP_CFG = dict(CFG, spp=2, chunk=1)
+RENDER_CFG = dict(CFG, chunk=4)
 LR = 1e-2
 NAMES = ("albedo", "roughness", "metallic", "envmap")
 
@@ -70,7 +77,7 @@ def test_dryrun_asserts_on_gloo_ranks(scene, world):
 
 @pytest.mark.parametrize("axis", ["spp", "px"])
 def test_step_state_identical_across_ranks(scene, axis):
-    out = dryrun.run_ranks(dryrun.train_step_rank, 2,
+    out = dryrun.run_ranks(train_step_rank, 2,
                            args=(scene[1], STEP_CFG, axis, LR),
                            timeout=DEADLINE)
     assert all(r["identical"] for r in out)
@@ -84,15 +91,23 @@ def test_step_state_identical_across_ranks(scene, axis):
         assert not np.array_equal(p, p0)
 
 
-def test_spp_step_matches_jax(scene):
+def _jax_maps(sc):
+    return (JMats(jnp.asarray(sc["alb"]), jnp.asarray(sc["rough"]),
+                  jnp.asarray(sc["met"]), sc["gj"].normal_geo),
+            jnp.asarray(sc["env"]))
+
+
+def _step_matches_jax(scene, axis):
+    """One two-rank step of the port against the JAX package's step of
+    the same axis on a 2-device mesh, both with Adam from key 1."""
     sc, port = scene
-    cam = JCam(RES, RES)
-    mats = JMats(jnp.asarray(sc["alb"]), jnp.asarray(sc["rough"]),
-                 jnp.asarray(sc["met"]), sc["gj"].normal_geo)
-    params = {"mats": mats, "envmap": jnp.asarray(sc["env"])}
+    mats, env = _jax_maps(sc)
+    params = {"mats": mats, "envmap": env}
     opt = optax.adam(LR, eps=1e-8)
-    mesh = jmake_mesh(2, axis="spp")
-    step = make_sharded_train_step(mesh, JCfg(**STEP_CFG), cam, opt)
+    make = make_sharded_train_step if axis == "spp" else \
+        make_px_sharded_train_step
+    mesh = jmake_mesh(2, axis=axis)
+    step = make(mesh, JCfg(**STEP_CFG), JCam(RES, RES), opt, axis=axis)
     with jax_fused_shade(), mesh:
         p_j, st_j, loss_j = step(params, opt.init(params),
                                  jax.random.PRNGKey(1), sc["gj"],
@@ -105,8 +120,8 @@ def test_spp_step_matches_jax(scene):
     p1_j = [np.asarray(x) for x in (p_j["mats"].albedo, p_j["mats"].roughness,
                                     p_j["mats"].metallic, p_j["envmap"])]
 
-    out = dryrun.run_ranks(dryrun.train_step_rank, 2,
-                           args=(port, STEP_CFG, "spp", LR),
+    out = dryrun.run_ranks(train_step_rank, 2,
+                           args=(port, STEP_CFG, axis, LR),
                            timeout=DEADLINE)[0]
     assert abs(out["loss"] - loss_j) <= 5e-3 * abs(loss_j)
     p0 = (sc["alb"], sc["rough"], sc["met"], sc["env"])
@@ -118,6 +133,32 @@ def test_spp_step_matches_jax(scene):
         np.testing.assert_allclose((p_t - start)[settled],
                                    (p_r - start)[settled], rtol=0,
                                    atol=1e-3 * LR, err_msg=name)
+
+
+def test_spp_step_matches_jax(scene):
+    _step_matches_jax(scene, "spp")
+
+
+def test_px_step_matches_jax(scene):
+    """Each rank renders and back-propagates its 16 rows keyed by
+    fold_in(key, rank); the loss and the gradients are SUMs over ranks."""
+    _step_matches_jax(scene, "px")
+
+
+def test_px_render_matches_jax(scene):
+    sc, port = scene
+    mats, env = _jax_maps(sc)
+    mesh = jmake_mesh(2, axis="px")
+    render = px_sharded_render(mesh, JCfg(**RENDER_CFG), JCam(RES, RES))
+    with jax_fused_shade(), mesh:
+        img_j = np.asarray(render(jax.random.PRNGKey(2), sc["gj"], mats,
+                                  env))
+    out = dryrun.run_ranks(px_render_rank, 2, args=(port, RENDER_CFG, 2),
+                           timeout=DEADLINE)
+    assert img_j.shape == (RES, RES, 3)
+    for img_t in out:
+        assert img_t.shape == img_j.shape and np.isfinite(img_t).all()
+        np.testing.assert_allclose(img_t, img_j, rtol=2e-2, atol=2e-2)
 
 
 def test_dryrun_multichip_toy_scene():
