@@ -9,9 +9,11 @@ flips with the port's threefry keys on the card (``rng.randint``,
 ``rng.bernoulli``), mirrors the flipped tuples and negates their
 normal-x, and takes one step of the from-scratch recipe
 (``models.train.scratch_step``). Only the losses at the log points and
-the f16 checkpoint leave the card. As in the JAX script, depth is kept
-in mm, outside the loss's valid range of 0.01–20: its term stays at the
-floor 1e-6 and the depth head does not train.
+the f16 checkpoint leave the card. Each step is deterministic
+(``models.train.make_train_step``), so a run repeats bit for bit from
+its seed. As in the JAX script, depth is kept in mm, outside the loss's
+valid range of 0.01–20: its term stays at the floor 1e-6 and the depth
+head does not train.
 
 Usage: python -m materialist_tpu_torch.cli.train_matnet_device OUT_DIR
            [--tuples 256] [--steps 3000] [--batch 4] [--spp 32]
@@ -31,8 +33,8 @@ from materialist_tpu_torch import device as device_mod
 from materialist_tpu_torch import rng
 from materialist_tpu_torch.cli.make_mg_dataset import render_scene
 from materialist_tpu_torch.models.dpt import MaterialNet
-from materialist_tpu_torch.models.train import (REDUCED, map_psnr,
-                                                save_checkpoint,
+from materialist_tpu_torch.models.train import (CUBLAS_WORKSPACE, REDUCED,
+                                                map_psnr, save_checkpoint,
                                                 scratch_step)
 from materialist_tpu_torch.render.shader import RenderConfig
 
@@ -108,6 +110,8 @@ def heldout_psnr(net: MaterialNet, data: dict) -> dict:
 
 
 def main(argv=None):
+    # the deterministic training step needs it before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out")
     ap.add_argument("--tuples", type=int, default=256)

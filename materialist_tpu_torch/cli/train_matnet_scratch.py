@@ -29,13 +29,16 @@ from materialist_tpu_torch.cli.make_mg_dataset import generate
 from materialist_tpu_torch.cli.train_matnet_device import (heldout_psnr,
                                                            reduced_net)
 from materialist_tpu_torch.models.dataset import MGDataset
-from materialist_tpu_torch.models.train import (save_checkpoint,
+from materialist_tpu_torch.models.train import (CUBLAS_WORKSPACE,
+                                                save_checkpoint,
                                                 scratch_step, to_nchw)
 
 IM_HW = (238, 322)   # the multiple-of-14 nearest the reference's 240×320
 
 
 def main(argv=None):
+    # the deterministic training step needs it before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out")
     ap.add_argument("--scenes", type=int, default=150)

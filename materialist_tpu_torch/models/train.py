@@ -16,12 +16,23 @@ from-scratch recipe of the trainers, ``chain(clip_by_global_norm(1),
 adamw(warmup_cosine))``, follows the JAX package step for step.
 ``save_checkpoint`` writes the JAX package's flat ``.npz`` layout, which
 both packages load.
+
+A step is deterministic, as the JAX package's is on its device: it runs
+under ``torch.use_deterministic_algorithms(True)``, so that an op with no
+deterministic version raises. On the card cuBLAS then needs
+``CUBLAS_WORKSPACE_CONFIG`` (``CUBLAS_WORKSPACE``), which the trainers set
+before CUDA starts. New tensors are not filled with NaN
+(``fill_uninitialized_memory``): the fills add a third to a step's
+launches, and the step repeats bit for bit without them (``chip_smoke.py``
+path 8c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,6 +50,9 @@ REDUCED = dict(features=64, out_channels=(48, 96, 192, 384),
                layer_idx=(1, 2, 4, 5), embed_dim=384, enc_depth=6,
                num_heads=6)
 MAP_KEYS = ("albedo", "roughness", "metallic", "normal", "depth")
+# the two workspace settings under which cuBLAS is deterministic
+CUBLAS_WORKSPACE = ":4096:8"
+CUBLAS_DETERMINISTIC = (":4096:8", ":16:8")
 
 
 def silog_loss(pred, target, valid, lambd: float = 0.5):
@@ -129,28 +143,60 @@ def clip_by_global_norm(params, max_norm: float):
     return norm
 
 
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block, raising
+    (not warning) where an op has no deterministic version, without the
+    NaN fill of new tensors; the caller's settings are restored
+    afterwards, on error too."""
+    det = torch.utils.deterministic
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+
+
+def _check_cublas(params):
+    if (any(p.is_cuda for p in params) and os.environ.get(
+            "CUBLAS_WORKSPACE_CONFIG") not in CUBLAS_DETERMINISTIC):
+        raise RuntimeError(
+            "the training step runs with deterministic algorithms, which "
+            "cuBLAS gives only with CUBLAS_WORKSPACE_CONFIG=:4096:8 or "
+            ":16:8 in the environment before CUDA starts (found "
+            f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r})")
+
+
 def make_train_step(net: MaterialNet, optimizer,
                     perceptual_fn: Optional[Callable] = None,
                     clip_norm: Optional[float] = None,
                     schedule: Optional[Callable] = None):
     """``step(batch)``: forward, losses, backward, optional global-norm
     clip, the learning rate ``schedule(count)`` (count = steps taken so
-    far, as optax counts) and one optimizer update. ``batch`` holds
-    (B, C, H, W) tensors on the net's device. Returns the detached
-    losses; the clipped gradients stay in ``.grad`` until the next step."""
+    far, as optax counts) and one optimizer update, all under
+    ``_deterministic_algorithms``. ``batch`` holds (B, C, H, W) tensors on
+    the net's device. Returns the detached losses; the clipped gradients
+    stay in ``.grad`` until the next step."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     count = [0]
 
     def step(batch):
-        optimizer.zero_grad(set_to_none=True)
-        losses = matnet_losses(net(batch["im"]), batch, perceptual_fn)
-        losses["total"].backward()
-        if clip_norm is not None:
-            clip_by_global_norm(params, clip_norm)
-        if schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = schedule(count[0])
-        optimizer.step()
+        _check_cublas(params)
+        with _deterministic_algorithms():
+            optimizer.zero_grad(set_to_none=True)
+            losses = matnet_losses(net(batch["im"]), batch, perceptual_fn)
+            losses["total"].backward()
+            if clip_norm is not None:
+                clip_by_global_norm(params, clip_norm)
+            if schedule is not None:
+                for group in optimizer.param_groups:
+                    group["lr"] = schedule(count[0])
+            optimizer.step()
         count[0] += 1
         return {k: v.detach() for k, v in losses.items()}
 

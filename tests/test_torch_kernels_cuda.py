@@ -3,11 +3,14 @@ small shapes (chip_smoke.py checks them at the main path's shapes). Needs
 an NVIDIA GPU: marked ``cuda`` and skipped where there is none. Run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``."""
 
+import os
+
 import pytest
 import torch
 
 from materialist_tpu_torch import rng
 from materialist_tpu_torch.camera import Camera
+from materialist_tpu_torch.models.train import CUBLAS_WORKSPACE
 from materialist_tpu_torch.ops import brdf
 from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.ops.kernels import envkernels as ek
@@ -23,6 +26,9 @@ from materialist_tpu_torch.utils.seeded import (MARCH_CASES,
                                                 march_case_inputs)
 
 pytestmark = pytest.mark.cuda
+# MaterialNet's training step is deterministic, which cuBLAS is only with
+# this set before its first use
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
 
 
 @pytest.fixture(scope="module")
@@ -436,7 +442,9 @@ def test_frozen_train_step_card_against_cpu(card):
     gradient within 1e-3 of its tensor's largest, parameters after the
     step equal to AdamW's first step on each device's own gradient, and
     within 1e-5 across devices where the gradients' difference pins that
-    step (chip_smoke.py path 8's bounds)."""
+    step. ``chip_smoke.py`` path 8b holds the reduced net at 224×336 to
+    its own gradient bounds, set from its readings: there a float32
+    step's gradients lie 1-2e-3 from the exact ones."""
     import copy
 
     from materialist_tpu_torch.models.dpt import MaterialNet
@@ -497,3 +505,89 @@ def test_frozen_train_step_card_against_cpu(card):
             d = d[~free]
         assert float(torch.cat([d.flatten(), d.new_zeros(1)]).max()) \
             <= 1e-5, k
+
+
+def test_device_trainer_repeats_bit_for_bit(card):
+    """Two 10-step runs of the device trainer's step (the reduced net,
+    the from-scratch recipe, batch 4 at 224×336) from one seed, at
+    PyTorch's default TF32 flags: the losses and the parameters are equal
+    bit for bit."""
+    from materialist_tpu_torch.cli import train_matnet_device as tdev
+    from materialist_tpu_torch.models import train as tr
+    g = torch.Generator().manual_seed(0)
+    data = {k: torch.rand((8, c) + tdev.IM_HW, generator=g).to(card)
+            for k, c in (("im", 3), ("albedo", 3), ("roughness", 1),
+                         ("metallic", 1), ("normal", 3))}
+    data["normal"] = 2 * data["normal"] - 1
+    data["normal"] /= data["normal"].norm(dim=1, keepdim=True)
+    data["depth"] = 500 + 2500 * torch.rand((8, 1) + tdev.IM_HW,
+                                            generator=g).to(card)
+    runs = []
+    for _ in range(2):
+        net = tdev.reduced_net(0, card)
+        step = tdev.make_device_step(tr.scratch_step(net, 3e-4, 300), data,
+                                     4)
+        key, losses = rng.key(1), []
+        for _ in range(10):
+            key, k = rng.split(key)
+            losses.append(torch.stack(list(step(k).values())))
+        runs.append((torch.stack(losses).cpu(), net.state_dict()))
+    (l1, p1), (l2, p2) = runs
+    assert bool(torch.isfinite(l1).all())
+    assert torch.equal(l1, l2)
+    for k, v in p1.items():
+        assert torch.equal(v, p2[k]), k
+
+
+@pytest.mark.parametrize("hw,out", [((37, 37), (16, 24)),
+                                    ((37, 37), (37, 37)),
+                                    ((5, 5), (3, 4))])
+def test_bicubic_scale_card_against_cpu(card, hw, out):
+    """The pos-embed interpolation on the card with matmul TF32 allowed,
+    against the CPU: value and gradient within 1e-6 of their maxima."""
+    from materialist_tpu_torch.ops.resize import bicubic_scale
+    g = torch.Generator().manual_seed(sum(out))
+    x = torch.randn((1, 384) + hw, generator=g)
+    s = tuple((o + 0.1) / i for o, i in zip(out, hw))
+    ct = torch.randn((1, 384) + out, generator=g)
+    res = {}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cpu", card):
+            xd = x.to(dev).detach().requires_grad_()
+            y = bicubic_scale(xd, s)
+            y.backward(ct.to(dev))
+            res[str(dev)] = (y.detach().cpu(), xd.grad.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for got, ref in zip(res[str(card)], res["cpu"]):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max())
+
+
+@pytest.mark.parametrize("shape,size", [((4, 64, 16, 24), (32, 48)),
+                                        ((4, 32, 128, 192), (224, 336))])
+def test_bilinear_align_corners_card_against_cpu(card, shape, size):
+    """The DPT decoder's upsampling on the card with matmul TF32 allowed:
+    the forward equal to the CPU's within 1e-6 of its maximum, and its
+    matrix backward too."""
+    from materialist_tpu_torch.ops.resize import bilinear_align_corners
+    g = torch.Generator().manual_seed(size[0])
+    x = torch.randn(shape, generator=g)
+    ct = torch.randn(shape[:2] + size, generator=g)
+    res = {}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for dev in ("cpu", card):
+            xd = x.to(dev).detach().requires_grad_()
+            y = bilinear_align_corners(xd, size)
+            y.backward(ct.to(dev))
+            res[str(dev)] = (y.detach().cpu(), xd.grad.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for got, ref in zip(res[str(card)], res["cpu"]):
+        assert float((got - ref).abs().max()) <= 1e-6 * float(
+            ref.abs().max())
