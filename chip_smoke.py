@@ -18,15 +18,23 @@ minutes on an NVIDIA H100, the kernels' build included). It
    uniforms, packed records and dead rows; the fused bounce's incoming
    throughput and its adjoint's cotangents are seeded noise); the entries
    at M = 4·512² stay
-   beside them as the worst case. The envmap sampler's rows and columns
-   must equal its plain version's on every query, its directions and pdfs
-   lie within 2 units in the last place. This runs after the main path,
-   whose launches by shape it prints first;
+   beside them as the worst case, and the march and the material adjoint
+   also at the largest chunk of path 10's 1024² plan (8·1024² rays). The
+   envmap sampler's rows and columns must equal its plain version's on
+   every query, its directions and pdfs lie within 2 units in the last
+   place. This runs after the main path, whose launches by shape it
+   prints first, and path 10;
 3. drives the paths, each with the launch counters set to 0 just before
    and read just after:
    - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
      photo_e2e scene (envmap → rm-material → envmap phases, 7 steps) with
      wavefront compaction at probed caps; it fails if a cap saturates;
+   - path 10, the port's bench (``materialist_tpu_torch/bench.py``) through
+     its ``main`` at full width, 1024²×64 spp at probed caps, with 2 fresh
+     iterations, a window of 2 and 2 relight frames (``bench_path``): its
+     times must be finite and positive, no cap may saturate, its step must
+     launch every kernel of the main path and its relight A–E and none of
+     the gradient's or compaction's;
    - the same without compaction at a smaller depth (3 steps), once
      before and once after the main path, the phase times and peak memory
      of the three runs printed side by side;
@@ -76,8 +84,8 @@ minutes on an NVIDIA H100, the kernels' build included). It
    and step; two gloo ranks on the one card through the four asserts of
    ``parallel/dryrun.py``; ``opt/accum.py`` against one backward;
 
-then prints one JSON line with each kernel's numbers and, last, the
-device line. Any failed check exits nonzero before the JSON lines.
+then prints its wall time, one JSON line with each kernel's numbers and,
+last, the device line. Any failed check exits nonzero before the JSON lines.
 Extra output goes to ``chiprun_out/chip_smoke.log``.
 
 ``python3 chip_smoke.py --repeat-8c N [--seeds 1,2]`` runs only path
@@ -196,6 +204,7 @@ def main():
     ap.add_argument("--seeds", default="",
                     help="with --repeat-8c: other seeds, once each (1,2)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -237,8 +246,10 @@ def main():
         [{"name": nm, "shape": list(shp), "launches": v}
          for (nm, shp), v in sorted(by_shape.items(),
                                     key=lambda kv: (kv[0][0], -kv[1]))]))
-    kernels = check_kernels(torch, _lib, caps, by_shape)
-    launches = {"main": main_launches,
+    # path 10 before the kernel rows: they take its largest chunk
+    bench_launches, m_big = bench_path(torch, _lib)
+    kernels = check_kernels(torch, _lib, caps, by_shape, m_big)
+    launches = {"main": main_launches, "path 10": bench_launches,
                 "nee_false": nee_false_path(torch, _lib),
                 "mip": mip_path(torch, _lib),
                 "standalone": standalone_lookup(torch, _lib)}
@@ -262,10 +273,11 @@ def main():
         k["launches_by_path"] = {
             p: launches[p][k["counter_name"]]
             for p in ("path 4", "path 5", "path 6", "path 7", "path 8",
-                      "path 8 generate", "path 9")}
+                      "path 8 generate", "path 9", "path 10")}
         k.pop("counter_name")
     log("kernels: " + ", ".join(
         f"{k['name']}={'ok' if k['ok'] else 'FAIL'}" for k in kernels))
+    log(f"total_s {time.perf_counter() - t_start:.1f}")
     for k in kernels:
         k.pop("ok")
     _flush_log()
@@ -302,25 +314,26 @@ def photo_scene(torch, dev):
     return cam, gbuf, mats, env
 
 
-def seeded_depth_scene(torch, dev):
-    """A seeded non-flat 512² depth map (bumps, boxes, a masked corner)
-    so the march takes both its hit and its miss branches."""
+def seeded_depth_scene(torch, dev, n=512):
+    """A seeded non-flat n² depth map (bumps, boxes, a masked corner)
+    so the march takes both its hit and its miss branches; the boxes and
+    the mask scale with n / 512."""
     from materialist_tpu_torch.camera import Camera
     from materialist_tpu_torch.render.scene import make_gbuffer
     g = torch.Generator().manual_seed(SEED)
-    n = 512
+    f = n // 512
     y, x = torch.meshgrid(torch.linspace(0, 1, n), torch.linspace(0, 1, n),
                           indexing="ij")
     depth = 2.0 + 0.3 * torch.sin(6 * math.pi * x) * torch.cos(
         4 * math.pi * y)
     for _ in range(12):
-        r0, c0 = torch.randint(0, n - 96, (2,), generator=g).tolist()
-        hh, ww = torch.randint(24, 96, (2,), generator=g).tolist()
+        r0, c0 = torch.randint(0, n - 96 * f, (2,), generator=g).tolist()
+        hh, ww = torch.randint(24 * f, 96 * f, (2,), generator=g).tolist()
         depth[r0:r0 + hh, c0:c0 + ww] -= 0.8 * float(
             torch.rand((), generator=g))
     depth += 0.01 * torch.rand((n, n), generator=g)
     mask = torch.zeros((n, n), dtype=torch.bool)
-    mask[:64, :128] = True
+    mask[:64 * f, :128 * f] = True
     cam = Camera(n, n)
     return cam, make_gbuffer(depth, cam, flip_depth=False, mask=mask,
                              device=dev)
@@ -350,21 +363,21 @@ def torch_isfinite_all(x):
     return torch.isfinite(x).all()
 
 
-def march_inputs(torch, dev):
-    """The march's worst-case input: M = 4·512² vertices of a seeded
+def march_inputs(torch, dev, n_side=512, s=4):
+    """The march's worst-case input: M = s·n_side² vertices of a seeded
     non-flat depth map, lobe directions from the BRDF sampler, NEE
     directions from the envmap sampler, the origin a broadcast over the
-    four samples. Returns (cam, gbuf, tables, origin, d_lobe, d_nee, kw)."""
+    s samples. Returns (cam, gbuf, tables, origin, d_lobe, d_nee, kw)."""
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.ops import brdf
     from materialist_tpu_torch.ops import envmap as em
     from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
     from materialist_tpu_torch.render import shader
-    cam, gbuf = seeded_depth_scene(torch, dev)
+    cam, gbuf = seeded_depth_scene(torch, dev, n_side)
     _, _, _, env = photo_scene(torch, dev)
     cfg = _render_cfg(InverseOptions())
     tab = shader.march_tables(cfg, gbuf)
-    s, n = 4, 512 * 512
+    n = n_side * n_side
     k = rng.split(rng.key(SEED), 3)
     u1 = rng.uniform(k[0], (s, n), dev)
     u2 = rng.uniform(k[1], (s, n, 2), dev)
@@ -506,7 +519,11 @@ def ulp_distance(torch, a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def check_kernels(torch, _lib, caps, by_shape):
+def check_kernels(torch, _lib, caps, by_shape, m_big):
+    """Every kernel against its plain version at the main path's shapes
+    (``by_shape``, on a trace chunk recorded at ``caps``), A and the
+    material adjoint also at ``m_big`` rays, the largest chunk of path
+    10's 1024² plan. Returns the kernels line's entries."""
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.ops import brdf
     from materialist_tpu_torch.ops import envmap as em
@@ -631,11 +648,34 @@ def check_kernels(torch, _lib, caps, by_shape):
         log(f"    {shp[0]} rays x {count} launches: device "
             f"{r['ms'].device_ms} ms, bound {b_ms:.4f} ms ({b_by}), steps "
             f"needed {r['steps']} of {r['full']}")
+    # the worst case of the 1024² bench (path 10): M = its plan's chunk ·
+    # 1024² vertices of the seeded depth map at 1024²; the hit indices it
+    # gives are the material adjoint's worst case below
+    inp_b = march_inputs(torch, dev, BENCH_RES, m_big // BENCH_RES ** 2)
+    big = march_case(f"1024² bench chunk, {m_big} rays", inp_b[0],
+                     *inp_b[2:], True)
+    if not big["ok"]:
+        fail(f"march_pair disagrees at {m_big} rays")
+    b_ms, b_by = bound(big["bytes"], big["steps"] * FLOPS_PER_MARCH_STEP)
+    a_big = dict(shape=[m_big], ms=big["ms"], device_ms=big["ms"].device_ms,
+                 plain_ms=cuda_ms(lambda: mk.march_pair_plain(
+                     inp_b[0], *inp_b[2:6], **inp_b[6]), iters=3, warmup=1),
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=big["t_err"],
+                 steps_needed=big["steps"], steps_full=big["full"])
+    log(f"    {m_big} rays: {big['ms']:.4f} ms, device "
+        f"{big['ms'].device_ms} ms, plain {a_big['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), steps needed {big['steps']} of "
+        f"{big['full']}")
+    hit_big = mk.march_pair(inp_b[0], *inp_b[2:6], **inp_b[6])[0]
+    idx_big = hit_big.idx.reshape(m_big).to(torch.int32).contiguous()
+    hit_big = hit_big.hit.reshape(m_big, 1)
+    del inp_b
     entry("march_pair", "march_pair.cu", "march_kernel.py:505",
           worst["ok"] and all(x.pop("ok") for x in a_shapes), worst["t_err"],
           worst["ms"], pms, worst["bytes"],
           worst["steps"] * FLOPS_PER_MARCH_STEP, by_shape=a_shapes,
-          steps_needed=worst["steps"], steps_full=worst["full"])
+          steps_needed=worst["steps"], steps_full=worst["full"],
+          worst_case_1024=a_big)
 
     def shape_rows(counter, case_of):
         """One row per main-path shape of ``counter``. case_of(shape)
@@ -854,6 +894,33 @@ def check_kernels(torch, _lib, caps, by_shape):
                       False)
     if not wc["ok"]:
         fail("row_scatter_add_bf16 disagrees on its worst case")
+    # and at the 1024² bench's chunk, onto the 1024² material table at
+    # the big march's indices: noise (its own generator, so the rows above
+    # and below keep their inputs) in the rows that hit, zero in the rest,
+    # as on the path, where a vertex that missed has no material. Noise
+    # there would pile ~4.8 M terms onto row 0, whose float32 sum then
+    # differs by its order alone by ~1e-2, at 1e-5 of the table's largest
+    # value; the 4·512² row keeps such a pile-up (0.65 M terms)
+    g_big = torch.Generator(device=dev).manual_seed(SEED + BENCH_RES)
+    cot_b = torch.randn((m_big, 8), generator=g_big, device=dev)
+    cot_b[:, 5:] = 0.0
+    cot_b = torch.where(hit_big, cot_b, 0.0)
+    wb = scatter_case(f"row_scatter_add_bf16 1024² bench chunk, {m_big} "
+                      "rows", cot_b, idx_big, BENCH_RES ** 2, False)
+    if not wb["ok"]:
+        fail(f"row_scatter_add_bf16 disagrees at {m_big} rows")
+    c_big = dict(shape=[m_big, 8, BENCH_RES ** 2], ms=wb["ms"],
+                 device_ms=wb["ms"].device_ms, plain_ms=cuda_ms(
+                     lambda: rowops.row_scatter_add_plain(
+                         cot_b, idx_big, BENCH_RES ** 2, False),
+                     iters=3, warmup=1),
+                 library_ms=wb["lib"], library_device_ms=wb["lib"].device_ms,
+                 bound_ms=bound(wb["bytes"], 0)[0],
+                 rows_touched=wb["touched"], max_abs_err=wb["err"])
+    log(f"    {m_big} rows onto {wb['touched']}: {wb['ms']:.4f} ms, device "
+        f"{wb['ms'].device_ms} ms, plain {c_big['plain_ms']:.4f} ms, bound "
+        f"{c_big['bound_ms']:.4f} ms, index_add_ {wb['lib'].device_ms} ms")
+    del cot_b, idx_big, hit_big
     first = material(rows_m[0]["shape"])
     scatter_entry("row_scatter_add_bf16", rows_m,
                   (first["cot"], first["idx"], first["rows"], False),
@@ -862,7 +929,8 @@ def check_kernels(torch, _lib, caps, by_shape):
                       device_ms=wc["ms"].device_ms, library_ms=wc["lib"],
                       library_device_ms=wc["lib"].device_ms,
                       bound_ms=bound(wc["bytes"], 0)[0],
-                      rows_touched=wc["touched"], max_abs_err=wc["err"]))
+                      rows_touched=wc["touched"], max_abs_err=wc["err"]),
+                  worst_case_1024=c_big)
 
     # sky adjoint: exact, the four bilinear taps of every pixel's sky
     # lookup onto the 16 x 32 emitter (a table of 6 KB)
@@ -2557,6 +2625,81 @@ def disk_route(torch, _lib):
         fail("path 8: the disk route's loss did not fall, or a frozen "
              "tensor moved")
     return launches
+
+
+# ---------------------------------------------------- path 10: the bench
+
+BENCH_RES = 1024
+# full width (1024² × 64 spp, probed caps), reduced depth
+BENCH_ARGS = ["--res", str(BENCH_RES), "--fresh-iters", "2",
+              "--trace-every", "2", "--relight-frames", "2"]
+# the step launches every kernel of the main path; the relight A–E
+STEP_KERNELS = ("march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
+                "row_gather", "row_scatter_add", "row_scatter_add_bf16",
+                "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
+                "env_pdf_dir", "env_lookup_bilinear")
+RELIGHT_KERNELS = ("march_pair", "shade_bounce_fwd", "row_gather",
+                   "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear")
+
+
+def bench_path(torch, _lib):
+    """Path 10: the port's bench (``materialist_tpu_torch/bench.py``)
+    through its ``main``, in this process, at ``BENCH_ARGS``; its output
+    goes to the log. Fails unless its times are finite and positive, no
+    compaction cap saturates, the step launches every main-path kernel
+    and the relight A–E and none of the gradient's or compaction's.
+    Returns (the path's launches, the rays of a chunk of its plan)."""
+    import io
+
+    from materialist_tpu_torch import bench
+    log(f"[path 10] python -m materialist_tpu_torch.bench "
+        f"{' '.join(BENCH_ARGS)}")
+    buf = io.StringIO()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            report = bench.main(BENCH_ARGS)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  [path 10] {line}")
+    launches = dict(_lib.LAUNCHES)
+    res, busy = report["result"], report["busy"]
+    log(f"[path 10] {time.perf_counter() - t0:.1f} s; groups "
+        f"{report['groups']}, chunk {report['chunk']}, replay "
+        f"{report['replay_blob']}, caps {report['caps']}, cap_util "
+        f"{report['cap_util']}, peak "
+        f"{report['peak_bytes'] / 2 ** 30:.2f} GiB; one profiled iteration: "
+        f"busy {busy['busy_ms']:.1f} ms ({busy['busy_share_of_fresh']:.3f} "
+        f"of a fresh one), {busy['device_ops']} device operations, the "
+        f"port's kernels {busy['port_kernels_ms']:.1f} ms")
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if last != res or res["metric"] != (
+            f"inverse_opt_fresh_trace_ms_per_iter_{BENCH_RES}sq_64spp"
+            "_measured"):
+        fail(f"path 10: unexpected result line {last}")
+    times = [res["value"], res["amortized_ms_per_iter"],
+             res["trace_pass_ms"], res["relight_fps"], *res["fresh_ms_each"]]
+    if len(res["fresh_ms_each"]) != 2 or not all(
+            isinstance(t, float) and math.isfinite(t) and t > 0
+            for t in times):
+        fail(f"path 10: times not finite and positive: {res}")
+    if not report["caps"] or any(u >= 0.999
+                                 for u in report["cap_util"].values()):
+        fail(f"path 10: caps {report['caps']}, cap_util "
+             f"{report['cap_util']}: a cap saturated (or none was probed)")
+    missing = [k for k in STEP_KERNELS if not report["launches"].get(k)]
+    if missing:
+        fail(f"path 10: the step launched no {missing}")
+    relight = report["relight_launches"]
+    if any(relight.get(k) for k in NO_GRAD_NONE_OF) or not all(
+            relight.get(k) for k in RELIGHT_KERNELS):
+        fail(f"path 10: the relight launched {relight}")
+    log(f"  path 10 launches: { {k: v for k, v in launches.items() if v} }")
+    m_big = report["chunk"] * BENCH_RES ** 2
+    del report
+    torch.cuda.empty_cache()
+    return launches, m_big
 
 
 # ---------------------------------------------------- path 9: multi-device

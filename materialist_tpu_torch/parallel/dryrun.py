@@ -12,9 +12,9 @@ timeout and the ranks a deadline, so a hung rank fails the run too.
 
 ``dryrun_rank`` is such an ``fn``: the four asserts of the JAX dry run,
 with its bounds (``assert_agree``), on a scene given as numpy arrays
-(``dryrun_multichip`` runs them on the JAX dry run's toy scene; from the
-command line: ``python -m materialist_tpu_torch.parallel.dryrun --world
-4 [--device cuda]``):
+(``dryrun_multichip`` runs them on the JAX dry run's toy scene, on the
+card unless the caller asks for the CPU; from the command line: ``python
+-m materialist_tpu_torch.parallel.dryrun --world 4 [--device cpu]``):
 
 1. the spp-sharded render equals the unsharded render;
 2. the px-sharded render equals the per-FilmSlice renders, concatenated;
@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from materialist_tpu_torch import device as device_mod
 from materialist_tpu_torch import rng
 from materialist_tpu_torch.camera import Camera
 from materialist_tpu_torch.ops.color import linear_to_srgb
@@ -347,24 +348,27 @@ def dryrun_rank(dev, scene: dict, cfg_fields: dict, lr: float = 1e-3):
             "foreign_modules": foreign_modules()}
 
 
-def dryrun_multichip(world: int, device: str = "cpu", res: int = 64,
+def dryrun_multichip(world: int, device=None, res: int = 64,
                      timeout: float = 600.0):
     """The JAX dry run's first stage (``__graft_entry__.py``): the four
     asserts on ``world`` ranks, on its toy scene at ``res``² with
     spp = world in chunks of 1, max_depth 3, the "exact" march (4 steps)
-    and film jitter 0.5. Returns each rank's result."""
+    and film jitter 0.5, on ``device`` (default: the card; raises
+    without one unless ``device="cpu"``). Returns each rank's result."""
+    dev = device_mod.resolve(device)
     cfg = dict(spp=world, chunk=1, max_depth=3, march_impl="exact",
                march_vectorized=True, march_steps=4, shadow_steps=4,
                fine_steps=1, shadow_fine_steps=1, film_jitter=0.5)
     return run_ranks(dryrun_rank, world, args=(toy_scene(res), cfg),
-                     device=device, timeout=timeout)
+                     device=str(dev), timeout=timeout)
 
 
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description=dryrun_multichip.__doc__)
     ap.add_argument("--world", type=int, default=2)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
     ap.add_argument("--res", type=int, default=64)
     a = ap.parse_args()
     for r, out in enumerate(dryrun_multichip(a.world, a.device, a.res)):

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-small shapes (chip_smoke.py checks them at the main path's shapes). Needs
+small shapes (chip_smoke.py checks them at the main path's shapes), and
+the march and the material adjoint at the 1024² bench's chunk. Needs
 an NVIDIA GPU: marked ``cuda`` and skipped where there is none. Run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``."""
 
@@ -19,11 +20,13 @@ from materialist_tpu_torch.ops.kernels import march as mk
 from materialist_tpu_torch.ops.kernels import rowops
 from materialist_tpu_torch.ops.kernels import shadebounce as sb
 from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
+from materialist_tpu_torch.opt.plan import device_bytes, plan_step
 from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render import shader
 from materialist_tpu_torch.render.scene import Materials, make_gbuffer
 from materialist_tpu_torch.utils.seeded import (MARCH_CASES,
-                                                march_case_inputs)
+                                                march_case_inputs,
+                                                march_scene)
 
 pytestmark = pytest.mark.cuda
 # MaterialNet's training step is deterministic, which cuBLAS is only with
@@ -75,6 +78,50 @@ def test_march_pair(card, scene):
                                  t_max_frac=3.0, bias_frac=4e-3, **kw)
     for a, b in ((hk.hit, hp.hit), (hk.idx, hp.idx), (sk, sp)):
         assert float((a == b).float().mean()) >= 0.999
+
+
+def test_march_and_material_adjoint_at_the_1024_chunk(card, scene):
+    """A and C′'s material adjoint (bf16 payload) at the largest chunk
+    of the 1024² × 64 spp bench's plan (8·1024² rays on an 80 GB card),
+    as chip_smoke.py's rows at that size: flags equal on >= 99.9% of the
+    rays, the scatter of the rays that hit within 1e-5 of its largest
+    value."""
+    res, n = 1024, 1024 * 1024
+    s = plan_step(res, 64, device_bytes(card), max_chunk=8).chunk
+    depth, mask = march_scene(res, 0)
+    cam = Camera(res, res)
+    gb = make_gbuffer(depth, cam, flip_depth=False, mask=mask, device=card)
+    tab = mk.march_tables(gb.dist, gb.valid)
+    k = rng.split(rng.key(4), 3)
+    wo = gb.wo.reshape(n, 3).expand(s, n, 3)
+    dl = brdf.sample_dirs(rng.uniform(k[0], (s, n), card),
+                          rng.uniform(k[1], (s, n, 2), card), wo,
+                          gb.normal_geo.reshape(n, 3),
+                          torch.full((n, 1), 0.5, device=card))
+    dn, _ = em.sample_dir(em.build_sampler(scene[3]),
+                          rng.uniform(k[2], (s, n, 2), card))
+    o = gb.position.reshape(n, 3).expand(s, n, 3)
+    kw = dict(n_steps=24, fine_steps=6, shadow_steps=16, shadow_fine_steps=2,
+              interval_frac=0.05)
+    hk, sk = mk.march_pair(cam, tab, o, dl, dn, **kw)
+    hp, sp = mk.march_pair_plain(cam, tab, o, dl, dn, t_min_frac=2e-3,
+                                 t_max_frac=3.0, bias_frac=4e-3, **kw)
+    assert hk.hit.numel() == s * n
+    assert 0.01 < float(hp.hit.float().mean()) < 0.99
+    for a, b in ((hk.hit, hp.hit), (hk.idx, hp.idx), (sk, sp)):
+        assert float((a == b).float().mean()) >= 0.999
+    idx = hk.idx.reshape(s * n).int().contiguous()
+    cot = torch.randn((s * n, 8), device=card,
+                      generator=torch.Generator(card).manual_seed(5))
+    cot[:, 5:] = 0.0
+    # a vertex that missed has no material, so no cotangent: noise there
+    # would pile millions of terms onto row 0, whose float32 sum differs
+    # by its order alone by more than 1e-5 of the largest value
+    cot = torch.where(hk.hit.reshape(s * n, 1), cot, 0.0)
+    a = rowops.row_scatter_add(cot, idx, n, exact=False)
+    b = rowops.row_scatter_add_plain(cot, idx, n, exact=False)
+    torch.testing.assert_close(a, b, rtol=1e-5,
+                               atol=1e-5 * float(b.abs().max()))
 
 
 def test_shade_bounce_and_scatter(card, scene):

@@ -5,7 +5,9 @@ in chunks of 1, max_depth 3, march steps 6/4, film jitter 0.5).
 - 1, 2, 3 and 4 ranks run the four asserts of the JAX package's dry run at
   its bounds (``dryrun.assert_agree``); a rank's ``sys.modules`` holds
   nothing of JAX or of the JAX package after them; so does the first
-  stage of the JAX dry run on its toy scene (``dryrun_multichip``);
+  stage of the JAX dry run on its toy scene (``dryrun_multichip``),
+  whose device, from Python and from its command line, is the card
+  unless the caller asks for the CPU;
 - ``make_mesh_2d`` lays four ranks out as (px, spp) = divmod(rank, 2);
 - after an spp- and a px-sharded step, the parameters, gradients and
   Adam state are the same bit for bit on every rank;
@@ -23,11 +25,16 @@ in chunks of 1, max_depth 3, march steps 6/4, film jitter 0.5).
 
 Every spawn has its own deadline of 120 s."""
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 
 from materialist_tpu.camera import Camera as JCam
 from materialist_tpu.ops.color import linear_to_srgb as jsrgb
@@ -43,6 +50,7 @@ from torch_rank_fns import mesh_2d_coords, px_render_rank, train_step_rank
 from torch_step_common import (CFG, RES, check_grad, jax_fused_shade,
                                make_scene)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEADLINE = 120.0
 ASSERT_CFG = dict(CFG, chunk=1)
 STEP_CFG = dict(CFG, spp=2, chunk=1)
@@ -163,9 +171,26 @@ def test_px_render_matches_jax(scene):
 
 def test_dryrun_multichip_toy_scene():
     """The JAX dry run's first stage, on its toy scene at 16²."""
-    out = dryrun.dryrun_multichip(2, res=16, timeout=DEADLINE)
+    out = dryrun.dryrun_multichip(2, device="cpu", res=16, timeout=DEADLINE)
     assert all(len(r["lines"]) == 4 and not r["foreign_modules"]
                for r in out)
+
+
+def test_dryrun_multichip_defaults_to_the_card(monkeypatch):
+    """Without a card the default device is an error, not the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.dryrun_multichip(2, res=16, timeout=DEADLINE)
+
+
+def test_dryrun_command_line_defaults_to_the_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "materialist_tpu_torch.parallel.dryrun",
+         "--world", "1", "--res", "16"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=DEADLINE)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
 
 
 def test_mesh_2d_layout():
