@@ -17,9 +17,12 @@ minutes on an NVIDIA H100, the kernels' build included). It
    from one compacted trace chunk of the scene (its rays, indices,
    uniforms, packed records and dead rows; the fused bounce's incoming
    throughput and its adjoint's cotangents are seeded noise); the entries
-   at M = 4·512² stay
-   beside them as the worst case, and the march and the material adjoint
-   also at the largest chunk of path 10's 1024² plan (8·1024² rays). The
+   at M = 4·512² stay beside them as the worst case. Each kernel of path
+   10 is held the same way at that path's shapes (those with at least a
+   tenth of its launches in one fresh iteration, and its largest), on a
+   trace chunk of the bench's 1024² scene recorded at the bench's plan
+   and caps; the march and the material adjoint also at their worst case
+   at that plan's chunk (8·1024² rays of a seeded depth map). The
    envmap sampler's rows and columns must equal its plain version's on
    every query, its directions and pdfs lie within 2 units in the last
    place. This runs after the main path, whose launches by shape it
@@ -246,9 +249,9 @@ def main():
         [{"name": nm, "shape": list(shp), "launches": v}
          for (nm, shp), v in sorted(by_shape.items(),
                                     key=lambda kv: (kv[0][0], -kv[1]))]))
-    # path 10 before the kernel rows: they take its largest chunk
-    bench_launches, m_big = bench_path(torch, _lib)
-    kernels = check_kernels(torch, _lib, caps, by_shape, m_big)
+    # path 10 before the kernel rows: they take its shapes and plan
+    bench_launches, bench_info = bench_path(torch, _lib)
+    kernels = check_kernels(torch, _lib, caps, by_shape, bench_info)
     launches = {"main": main_launches, "path 10": bench_launches,
                 "nee_false": nee_false_path(torch, _lib),
                 "mip": mip_path(torch, _lib),
@@ -314,27 +317,39 @@ def photo_scene(torch, dev):
     return cam, gbuf, mats, env
 
 
-def seeded_depth_scene(torch, dev, n=512):
-    """A seeded non-flat n² depth map (bumps, boxes, a masked corner)
-    so the march takes both its hit and its miss branches; the boxes and
-    the mask scale with n / 512."""
+def seeded_depth_scene(torch, dev):
+    """A seeded non-flat 512² depth map (bumps, boxes, a masked corner)
+    so the march takes both its hit and its miss branches."""
     from materialist_tpu_torch.camera import Camera
     from materialist_tpu_torch.render.scene import make_gbuffer
     g = torch.Generator().manual_seed(SEED)
-    f = n // 512
+    n = 512
     y, x = torch.meshgrid(torch.linspace(0, 1, n), torch.linspace(0, 1, n),
                           indexing="ij")
     depth = 2.0 + 0.3 * torch.sin(6 * math.pi * x) * torch.cos(
         4 * math.pi * y)
     for _ in range(12):
-        r0, c0 = torch.randint(0, n - 96 * f, (2,), generator=g).tolist()
-        hh, ww = torch.randint(24 * f, 96 * f, (2,), generator=g).tolist()
+        r0, c0 = torch.randint(0, n - 96, (2,), generator=g).tolist()
+        hh, ww = torch.randint(24, 96, (2,), generator=g).tolist()
         depth[r0:r0 + hh, c0:c0 + ww] -= 0.8 * float(
             torch.rand((), generator=g))
     depth += 0.01 * torch.rand((n, n), generator=g)
     mask = torch.zeros((n, n), dtype=torch.bool)
-    mask[:64 * f, :128 * f] = True
+    mask[:64, :128] = True
     cam = Camera(n, n)
+    return cam, make_gbuffer(depth, cam, flip_depth=False, mask=mask,
+                             device=dev)
+
+
+def bench_march_scene(torch, dev):
+    """The 1024² march scene of ``tests/test_torch_kernels_cuda.py``'s
+    check at the bench's chunk (``utils/seeded.py::march_scene``, seed
+    0): (cam, gbuf)."""
+    from materialist_tpu_torch.camera import Camera
+    from materialist_tpu_torch.render.scene import make_gbuffer
+    from materialist_tpu_torch.utils.seeded import march_scene
+    depth, mask = march_scene(BENCH_RES, 0)
+    cam = Camera(BENCH_RES, BENCH_RES)
     return cam, make_gbuffer(depth, cam, flip_depth=False, mask=mask,
                              device=dev)
 
@@ -363,9 +378,10 @@ def torch_isfinite_all(x):
     return torch.isfinite(x).all()
 
 
-def march_inputs(torch, dev, n_side=512, s=4):
-    """The march's worst-case input: M = s·n_side² vertices of a seeded
-    non-flat depth map, lobe directions from the BRDF sampler, NEE
+def march_inputs(torch, dev, scene=None, s=4):
+    """The march's worst-case input: M = s·n vertices of a seeded
+    non-flat depth map of n pixels (``scene`` = (cam, gbuf), by default
+    ``seeded_depth_scene``), lobe directions from the BRDF sampler, NEE
     directions from the envmap sampler, the origin a broadcast over the
     s samples. Returns (cam, gbuf, tables, origin, d_lobe, d_nee, kw)."""
     from materialist_tpu_torch import rng
@@ -373,11 +389,11 @@ def march_inputs(torch, dev, n_side=512, s=4):
     from materialist_tpu_torch.ops import envmap as em
     from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
     from materialist_tpu_torch.render import shader
-    cam, gbuf = seeded_depth_scene(torch, dev, n_side)
+    cam, gbuf = scene or seeded_depth_scene(torch, dev)
     _, _, _, env = photo_scene(torch, dev)
     cfg = _render_cfg(InverseOptions())
     tab = shader.march_tables(cfg, gbuf)
-    n = n_side * n_side
+    n = cam.height * cam.width
     k = rng.split(rng.key(SEED), 3)
     u1 = rng.uniform(k[0], (s, n), dev)
     u2 = rng.uniform(k[1], (s, n, 2), dev)
@@ -466,18 +482,23 @@ def needed_march_steps(torch, cam, tab, origin, direction, n_steps,
     return int(steps)
 
 
-def capture_trace(torch, caps):
-    """One trace chunk of the photo scene with the main path's compaction
-    caps, and the inputs of every march_pair, compact_sel, env_sample_dir
-    and env_pdf_dir call of it. Returns (records, march calls, compact_sel
-    calls, {kernel name: envmap kernel calls})."""
+def capture_trace(torch, scene, cfg, g):
+    """One trace chunk of ``scene`` = (cam, gbuf, mats, env) at ``cfg``,
+    and the inputs of every march_pair, compact_sel, env_sample_dir and
+    env_pdf_dir call of it. Returns a namespace: the scene, ``cfg``,
+    ``key``, ``n`` pixels, ``table5`` (the material table's first five
+    columns), ``recs`` (the records), ``marches``, ``sels`` and
+    ``env_calls`` ({kernel name: calls}), and ``g``, the generator of
+    the noise of the checks on it."""
+    import types
+
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.ops.kernels import envkernels as ek
     from materialist_tpu_torch.ops.kernels import march as mk
-    from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
+    from materialist_tpu_torch.render import bsdf as bsdf_mod
     from materialist_tpu_torch.render import shader
-    cam, gbuf, mats, env = photo_scene(torch, torch.device(DEV))
-    cfg = _render_cfg(InverseOptions())._replace(compact_caps=tuple(caps))
+    cam, gbuf, mats, env = scene
+    key = rng.key(SEED + 1)
     marches, sels = [], []
     env_calls = {"env_sample_dir": [], "env_pdf_dir": []}
     pair, sel = mk.march_pair, shader.compact_sel
@@ -502,12 +523,15 @@ def capture_trace(torch, caps):
     mk.march_pair, shader.compact_sel = rec_pair, rec_sel
     ek.env_sample_dir, ek.env_pdf_dir = rec_sample, rec_pdf
     try:
-        recs = shader._trace_chunk_paths(rng.key(SEED + 1), cfg, cam, gbuf,
-                                         mats, env)
+        recs = shader._trace_chunk_paths(key, cfg, cam, gbuf, mats, env)
     finally:
         mk.march_pair, shader.compact_sel = pair, sel
         ek.env_sample_dir, ek.env_pdf_dir = sample, pdf
-    return recs, marches, sels, env_calls
+    return types.SimpleNamespace(
+        cam=cam, gbuf=gbuf, mats=mats, env=env, cfg=cfg, key=key,
+        n=cam.height * cam.width,
+        table5=bsdf_mod.disney(mats).table[:, :5], recs=recs,
+        marches=marches, sels=sels, env_calls=env_calls, g=g)
 
 
 def ulp_distance(torch, a, b):
@@ -519,11 +543,14 @@ def ulp_distance(torch, a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def check_kernels(torch, _lib, caps, by_shape, m_big):
+def check_kernels(torch, _lib, caps, by_shape, bench_info):
     """Every kernel against its plain version at the main path's shapes
-    (``by_shape``, on a trace chunk recorded at ``caps``), A and the
-    material adjoint also at ``m_big`` rays, the largest chunk of path
-    10's 1024² plan. Returns the kernels line's entries."""
+    (``by_shape``, on a trace chunk of the photo scene recorded at
+    ``caps``) and at path 10's (``bench_info["by_shape"]``, on a trace
+    chunk of the bench's 1024² scene recorded at its plan and caps), A and
+    the material adjoint also at their worst case at that plan's chunk.
+    Returns the kernels line's entries."""
+    from materialist_tpu_torch import bench
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.ops import brdf
     from materialist_tpu_torch.ops import envmap as em
@@ -534,7 +561,6 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     from materialist_tpu_torch.ops.kernels import shadebounce as sb
     from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
     from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
-    from materialist_tpu_torch.render import bsdf as bsdf_mod
     from materialist_tpu_torch.render import screenspace as ss
     from materialist_tpu_torch.render import shader
 
@@ -568,30 +594,51 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
         if not ok:
             fail(f"kernel {name} disagrees with its plain version")
 
-    def shapes_of(counter):
+    def shapes_of(counter, shapes=None):
         """The shapes that hold at least a tenth of a kernel's launches
-        on the main path, most launched (then largest) first:
+        on the main path (``shapes``: on path 10, and the largest shape
+        there too), most launched (then largest) first:
         [(shape, launches)]."""
-        rows = [(shp, v) for (nm, shp), v in by_shape.items()
+        rows = [(shp, v) for (nm, shp), v in (shapes or by_shape).items()
                 if nm == counter]
         total = sum(v for _, v in rows)
         if not total:
             fail(f"no launches by shape recorded for {counter}")
-        return sorted(((shp, v) for shp, v in rows if v >= 0.1 * total),
-                      key=lambda r: (-r[1], [-x for x in r[0]]))
+        picked = sorted(((shp, v) for shp, v in rows if v >= 0.1 * total),
+                        key=lambda r: (-r[1], [-x for x in r[0]]))
+        if shapes:
+            big = max(rows, key=lambda r: (math.prod(max(x, 1)
+                                                     for x in r[0]), r[1]))
+            if big not in picked:
+                picked.append(big)
+        return picked
 
-    log("[kernels] main-path shapes, kernel vs plain on the card")
+    def path10_shapes(counter):
+        return shapes_of(counter, bench_info["by_shape"])
+
+    log("[kernels] main-path and path-10 shapes, kernel vs plain on the "
+        "card")
     cam_p, gbuf_p, mats_p, env = photo_scene(torch, dev)
     s = 4
     n = 512 * 512
     m = s * n
     sampler = em.build_sampler(env)
     cfg = _render_cfg(InverseOptions())
-    crecs, march_calls, sel_calls, env_calls = capture_trace(torch, caps)
+    tr_main = capture_trace(torch, (cam_p, gbuf_p, mats_p, env),
+                            cfg._replace(compact_caps=tuple(caps)), g)
+    # path 10's: the bench's scene and plan; its noise from its own
+    # generator, so the main path's rows keep their inputs
+    tr_10 = capture_trace(
+        torch, bench.load_scene(bench.SCENE, BENCH_RES, dev)[:4],
+        bench.render_config(64, False)._replace(
+            compact_caps=tuple(bench_info["caps"]),
+            chunk=bench_info["chunk"], replay_blob=bench_info["replay_blob"]),
+        torch.Generator(device=dev).manual_seed(SEED + 2 * BENCH_RES))
 
     # ---- A: march_pair, first on the worst case (a seeded non-flat depth
     # map, M = 4·512², the origin a broadcast over the samples), then at
-    # every main-path shape on the rays of the recorded trace chunk
+    # every main-path and path-10 shape on the rays of the recorded trace
+    # chunks
     def march_case(tag, cam_, tab_, o, dl, dn, kw, want_hits):
         hit_k, shad_k = mk.march_pair(cam_, tab_, o, dl, dn, **kw)
         hit_p, shad_p = mk.march_pair_plain(cam_, tab_, o, dl, dn, **kw)
@@ -634,24 +681,33 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     pms = cuda_ms(lambda: mk.march_pair_plain(cam_a, tab, origin, d_lobe,
                                               d_nee, **kw_a),
                   iters=3, warmup=1)
-    a_shapes = []
-    for (shp, count) in shapes_of("march_pair"):
-        call = [c for c in march_calls if c[3].numel() // 3 == shp[0]]
-        if not call:
-            fail(f"no recorded march of {shp[0]} rays")
-        r = march_case(f"trace chunk, {shp[0]} rays", *call[0], False)
-        b_ms, b_by = bound(r["bytes"], r["steps"] * FLOPS_PER_MARCH_STEP)
-        a_shapes.append(dict(shape=list(shp), launches=count, ok=r["ok"],
+
+    def a_rows(tr, shapes, where):
+        rows = []
+        for (shp, count) in shapes:
+            call = [c for c in tr.marches if c[3].numel() // 3 == shp[0]]
+            if not call:
+                fail(f"no recorded march of {shp[0]} rays ({where})")
+            r = march_case(f"{where} trace chunk, {shp[0]} rays", *call[0],
+                           False)
+            b_ms, b_by = bound(r["bytes"], r["steps"] * FLOPS_PER_MARCH_STEP)
+            rows.append(dict(shape=list(shp), launches=count, ok=r["ok"],
                              ms=r["ms"], device_ms=r["ms"].device_ms,
                              bound_ms=b_ms, bound_by=b_by,
-                             steps_needed=r["steps"], steps_full=r["full"]))
-        log(f"    {shp[0]} rays x {count} launches: device "
-            f"{r['ms'].device_ms} ms, bound {b_ms:.4f} ms ({b_by}), steps "
-            f"needed {r['steps']} of {r['full']}")
+                             max_abs_err=r["t_err"], steps_needed=r["steps"],
+                             steps_full=r["full"]))
+            log(f"    {where}: {shp[0]} rays x {count} launches: device "
+                f"{r['ms'].device_ms} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"steps needed {r['steps']} of {r['full']}")
+        return rows
+    a_shapes = a_rows(tr_main, shapes_of("march_pair"), "main")
+    a_10 = a_rows(tr_10, path10_shapes("march_pair"), "path 10")
     # the worst case of the 1024² bench (path 10): M = its plan's chunk ·
-    # 1024² vertices of the seeded depth map at 1024²; the hit indices it
-    # gives are the material adjoint's worst case below
-    inp_b = march_inputs(torch, dev, BENCH_RES, m_big // BENCH_RES ** 2)
+    # 1024² vertices of the CUDA test's seeded 1024² depth map; the hit
+    # indices it gives are the material adjoint's worst case below
+    m_big = bench_info["chunk"] * BENCH_RES ** 2
+    inp_b = march_inputs(torch, dev, bench_march_scene(torch, dev),
+                         bench_info["chunk"])
     big = march_case(f"1024² bench chunk, {m_big} rays", inp_b[0],
                      *inp_b[2:], True)
     if not big["ok"]:
@@ -671,28 +727,36 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     hit_big = hit_big.hit.reshape(m_big, 1)
     del inp_b
     entry("march_pair", "march_pair.cu", "march_kernel.py:505",
-          worst["ok"] and all(x.pop("ok") for x in a_shapes), worst["t_err"],
-          worst["ms"], pms, worst["bytes"],
+          worst["ok"] and all(x.pop("ok") for x in a_shapes + a_10),
+          worst["t_err"], worst["ms"], pms, worst["bytes"],
           worst["steps"] * FLOPS_PER_MARCH_STEP, by_shape=a_shapes,
-          steps_needed=worst["steps"], steps_full=worst["full"],
-          worst_case_1024=a_big)
+          by_shape_path10=a_10, steps_needed=worst["steps"],
+          steps_full=worst["full"], worst_case_1024=a_big)
 
     def shape_rows(counter, case_of):
-        """One row per main-path shape of ``counter``. case_of(shape)
-        gives dict(run=the kernel call, check=() -> (ok, max_abs_err),
+        """One row per main-path shape of ``counter``, and one per path-10
+        shape: (main rows, path-10 rows). case_of(shape, trace) gives
+        dict(run=the kernel call, check=() -> (ok, max_abs_err),
         bytes=..., flops=...)."""
-        rows = []
-        for shp, count in shapes_of(counter):
-            c = case_of(shp)
-            ok, err = c["check"]()
-            ms = dev_ms(c["run"])
-            b_ms, b_by = bound(c["bytes"], c["flops"])
-            rows.append(dict(shape=list(shp), launches=count, ok=ok,
-                             max_abs_err=err, ms=ms, device_ms=ms.device_ms,
-                             bound_ms=b_ms, bound_by=b_by))
-            log(f"    {counter} {shp} x {count} launches: {ms:.4f} ms, "
-                f"device {ms.device_ms} ms, bound {b_ms:.4f} ms ({b_by})")
-        return rows
+        out_rows = []
+        for tr, shapes, where in (
+                (tr_main, shapes_of(counter), "main"),
+                (tr_10, path10_shapes(counter), "path 10")):
+            rows = []
+            for shp, count in shapes:
+                c = case_of(shp, tr)
+                ok, err = c["check"]()
+                ms = dev_ms(c["run"])
+                b_ms, b_by = bound(c["bytes"], c["flops"])
+                rows.append(dict(shape=list(shp), launches=count, ok=ok,
+                                 max_abs_err=err, ms=ms,
+                                 device_ms=ms.device_ms, bound_ms=b_ms,
+                                 bound_by=b_by))
+                log(f"    {where}: {counter} {shp} x {count} launches: "
+                    f"{ms:.4f} ms, device {ms.device_ms} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+            out_rows.append(rows)
+        return out_rows
 
     def all_ok(rows):
         return all(r.pop("ok") for r in rows)
@@ -712,26 +776,29 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     recb = r1.recb.reshape(m, 13).contiguous()
     envc = env.contiguous()
     args = (envc, blob, thr, nrmf, auxf.contiguous(), recb)
-    table5 = bsdf_mod.disney(mats_p).table[:, :5]
 
-    def shade_inputs(mm):
-        """The fused bounce's arguments of the recorded bounce that ran
-        ``mm`` rows, assembled as the shade pass assembles them, except
-        the incoming throughput, which is seeded uniform noise (as the
-        adjoint's cotangents are seeded normal noise): the bounces before
-        are not replayed, and neither time nor agreement hangs on them."""
-        b = [i for i, r in enumerate(crecs) if r.aux.numel() // 5 == mm]
+    def shade_inputs(mm, tr):
+        """The fused bounce's arguments of the bounce of trace ``tr`` that
+        ran ``mm`` rows, assembled as the shade pass assembles them,
+        except the incoming throughput, which is seeded uniform noise (as
+        the adjoint's cotangents are seeded normal noise): the bounces
+        before are not replayed, and neither time nor agreement hangs on
+        them."""
+        b = [i for i, r in enumerate(tr.recs) if r.aux.numel() // 5 == mm]
         if not b:
             fail(f"no recorded bounce of {mm} rows")
         b = b[0]
-        rec = crecs[b]
+        rec = tr.recs[b]
         tgt = rec.aux.shape[:-1]
-        if b == 0:
+        if b == 0 and tr.cfg.film_jitter > 0.0:
             _, _, wo_b, _ = shader._primary_state(
-                rng.key(SEED + 1), cfg, cam_p, gbuf_p, cfg.chunk)
-            blob_b = table5.expand(tgt + (5,))
+                tr.key, tr.cfg, tr.cam, tr.gbuf, tr.cfg.chunk)
+            blob_b = tr.table5.expand(tgt + (5,))
+        elif b == 0:
+            wo_b = tr.gbuf.wo.reshape(tr.n, 3)
+            blob_b = tr.table5.expand(tgt + (5,))
         else:
-            w_prev = crecs[b - 1].aux[..., 0:3].float()
+            w_prev = tr.recs[b - 1].aux[..., 0:3].float()
             if rec.extras is not None:
                 w_prev = rowops.gather_rows_coherent(w_prev.reshape(-1, 3),
                                                      rec.extras[0])[None]
@@ -739,8 +806,8 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
             blob_b = rec.blob.float()
         aux_b = torch.cat([wo_b.expand(tgt + (3,)).to(torch.bfloat16),
                            rec.aux], -1)
-        return (envc, blob_b.reshape(mm, 5).contiguous(),
-                torch.rand((mm, 3), generator=g, device=dev),
+        return (tr.env.contiguous(), blob_b.reshape(mm, 5).contiguous(),
+                torch.rand((mm, 3), generator=tr.g, device=dev),
                 rec.nrm.reshape(mm, 3).contiguous(),
                 aux_b.reshape(mm, 8).contiguous(),
                 rec.recb.reshape(mm, 13).contiguous())
@@ -765,16 +832,16 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
             errs.append(e)
         return all(oks), max(errs)
 
-    def fwd_case(shp):
-        a = shade_inputs(shp[0])
+    def fwd_case(shp, tr):
+        a = shade_inputs(shp[0], tr)
         return dict(run=lambda: sb.shade_bounce_fwd(*a),
                     check=lambda: fwd_check(a),
                     bytes=shp[0] * (80 + 24) + envc.numel() * 4,
                     flops=shp[0] * FLOPS_SHADE_FWD)
 
-    def bwd_case(shp):
-        a = shade_inputs(shp[0])
-        ct = [torch.randn((shp[0], 3), generator=g, device=dev)
+    def bwd_case(shp, tr):
+        a = shade_inputs(shp[0], tr)
+        ct = [torch.randn((shp[0], 3), generator=tr.g, device=dev)
               for _ in range(2)]
         return dict(run=lambda: sb.shade_bounce_bwd(*a, *ct),
                     check=lambda: bwd_check(a, *ct),
@@ -784,11 +851,11 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     ok, err = fwd_check(args)
     ms = dev_ms(lambda: sb.shade_bounce_fwd(*args))
     pms = cuda_ms(lambda: sb.shade_bounce_fwd_plain(*args), iters=5)
-    rows_b = shape_rows("shade_bounce_fwd", fwd_case)
+    rows_b, rows_10 = shape_rows("shade_bounce_fwd", fwd_case)
     entry("shade_bounce_fwd", "shadebounce.cu", "shadebounce.py:267",
-          ok and all_ok(rows_b), err, ms, pms,
+          ok and all_ok(rows_b + rows_10), err, ms, pms,
           m * (80 + 24) + envc.numel() * 4, m * FLOPS_SHADE_FWD,
-          by_shape=rows_b)
+          by_shape=rows_b, by_shape_path10=rows_10)
 
     ct_t = torch.randn((m, 3), generator=g, device=dev)
     ct_r = torch.randn((m, 3), generator=g, device=dev)
@@ -796,11 +863,11 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     ms = dev_ms(lambda: sb.shade_bounce_bwd(*args, ct_t, ct_r))
     pms = cuda_ms(lambda: sb.shade_bounce_bwd_explicit(*args, ct_t, ct_r),
                   iters=5)
-    rows_b = shape_rows("shade_bounce_bwd", bwd_case)
+    rows_b, rows_10 = shape_rows("shade_bounce_bwd", bwd_case)
     entry("shade_bounce_bwd", "shadebounce.cu", "shadebounce.py:297",
-          ok and all_ok(rows_b), err, ms, pms,
+          ok and all_ok(rows_b + rows_10), err, ms, pms,
           m * (104 + 56) + envc.numel() * 4, m * FLOPS_SHADE_BWD,
-          by_shape=rows_b)
+          by_shape=rows_b, by_shape_path10=rows_10)
 
     # ---- C′ by caller. Each is checked and timed at every main-path
     # shape on the recorded chunk's indices, its dead rows zero; the
@@ -837,52 +904,61 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
         return dict(ok=o, err=e, ms=ms, lib=lib_ms, bytes=bytes_moved,
                     live=live, touched=touched)
 
-    def compacted_bounce(cap):
-        """(sel, count, vertex idx, film idx) of the recorded bounce that
-        was compacted to ``cap`` rows."""
-        for r in crecs:
+    def compacted_bounce(cap, tr):
+        """(sel, count, vertex idx, film idx) of the bounce of trace ``tr``
+        that was compacted to ``cap`` rows."""
+        for r in tr.recs:
             if r.extras is not None and r.extras[0].shape[0] == cap:
                 return r.extras
         fail(f"no recorded bounce of {cap} compacted rows")
 
     def by_shape_rows(counter, make):
-        """One row per main-path shape of ``counter``: make(shape) gives
-        the arguments of scatter_case."""
-        rows = []
-        for shp, count in shapes_of(counter):
-            r = scatter_case(f"{counter} {shp}", **make(shp))
-            b_ms, b_by = bound(r["bytes"], 0)
-            rows.append(dict(shape=list(shp), launches=count, r=r,
-                             ms=r["ms"], device_ms=r["ms"].device_ms,
-                             library_ms=r["lib"],
-                             library_device_ms=r["lib"].device_ms,
-                             bound_ms=b_ms, live_rows=r["live"],
-                             rows_touched=r["touched"],
-                             max_abs_err=r["err"]))
-            log(f"    {counter} {shp} x {count} launches: {r['live']} live "
-                f"rows onto {r['touched']}, device {r['ms'].device_ms} ms, "
-                f"bound {b_ms:.4f} ms, index_add_ {r['lib'].device_ms} ms")
-        return rows
+        """One row per main-path shape of ``counter``, and one per path-10
+        shape: (main rows, path-10 rows). make(shape, trace) gives the
+        arguments of scatter_case."""
+        out_rows = []
+        for tr, shapes, where in (
+                (tr_main, shapes_of(counter), "main"),
+                (tr_10, path10_shapes(counter), "path 10")):
+            rows = []
+            for shp, count in shapes:
+                r = scatter_case(f"{where}: {counter} {shp}",
+                                 **make(shp, tr))
+                b_ms, b_by = bound(r["bytes"], 0)
+                rows.append(dict(shape=list(shp), launches=count, r=r,
+                                 ms=r["ms"], device_ms=r["ms"].device_ms,
+                                 library_ms=r["lib"],
+                                 library_device_ms=r["lib"].device_ms,
+                                 bound_ms=b_ms, live_rows=r["live"],
+                                 rows_touched=r["touched"],
+                                 max_abs_err=r["err"]))
+                log(f"    {where}: {counter} {shp} x {count} launches: "
+                    f"{r['live']} live rows onto {r['touched']}, device "
+                    f"{r['ms'].device_ms} ms, bound {b_ms:.4f} ms, "
+                    f"index_add_ {r['lib'].device_ms} ms")
+            out_rows.append(rows)
+        return out_rows
 
     def dead_rows_zero(cot, count):
         live = torch.arange(cot.shape[0], device=dev) < count
         return torch.where(live[:, None], cot, 0.0)
 
     def scatter_entry(name, rows, plain_args, **more):
-        """The entry of one caller: its most launched shape, the others
-        beside it."""
+        """The entry of one caller: its most launched main-path shape, the
+        others and path 10's beside it."""
+        rows, rows_10 = rows
         first = rows[0]["r"]
         pms = cuda_ms(lambda: rowops.row_scatter_add_plain(*plain_args),
                       iters=3, warmup=1)
-        ok = all(x.pop("r")["ok"] for x in rows)
+        ok = all(x.pop("r")["ok"] for x in rows + rows_10)
         entry(name, "rowops.cu", "rowops.py:189", ok, first["err"],
               first["ms"], pms, first["bytes"], 0, library_ms=first["lib"],
-              by_shape=rows, **more)
+              by_shape=rows, by_shape_path10=rows_10, **more)
 
     # material adjoint: bf16 payload, (cap, 8) rows onto the material table
-    def material(shp):
-        _, count, vtx, _ = compacted_bounce(shp[0])
-        cot = torch.randn((shp[0], 8), generator=g, device=dev)
+    def material(shp, tr):
+        _, count, vtx, _ = compacted_bounce(shp[0], tr)
+        cot = torch.randn((shp[0], 8), generator=tr.g, device=dev)
         cot[:, 5:] = 0.0
         return dict(cot=dead_rows_zero(cot, count), idx=vtx.contiguous(),
                     rows=shp[2], exact=False)
@@ -895,14 +971,15 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     if not wc["ok"]:
         fail("row_scatter_add_bf16 disagrees on its worst case")
     # and at the 1024² bench's chunk, onto the 1024² material table at
-    # the big march's indices: noise (its own generator, so the rows above
-    # and below keep their inputs) in the rows that hit, zero in the rest,
-    # as on the path, where a vertex that missed has no material. Noise
-    # there would pile ~4.8 M terms onto row 0, whose float32 sum then
-    # differs by its order alone by ~1e-2, at 1e-5 of the table's largest
-    # value; the 4·512² row keeps such a pile-up (0.65 M terms)
-    g_big = torch.Generator(device=dev).manual_seed(SEED + BENCH_RES)
-    cot_b = torch.randn((m_big, 8), generator=g_big, device=dev)
+    # the big march's indices: noise (path 10's generator, so the main
+    # path's rows keep their inputs) in the rows that hit, zero in the rest,
+    # as on the path, where the cotangent of a vertex that missed is zero
+    # (tests/test_torch_bench.py::
+    # test_missed_vertices_carry_no_material_cotangent). Noise there would
+    # pile ~4.8 M terms onto row 0, whose float32 sum then differs by its
+    # order alone by ~1e-2, at 1e-5 of the table's largest value; the
+    # 4·512² row keeps such a pile-up (0.65 M terms)
+    cot_b = torch.randn((m_big, 8), generator=tr_10.g, device=dev)
     cot_b[:, 5:] = 0.0
     cot_b = torch.where(hit_big, cot_b, 0.0)
     wb = scatter_case(f"row_scatter_add_bf16 1024² bench chunk, {m_big} "
@@ -921,7 +998,7 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
         f"{wb['ms'].device_ms} ms, plain {c_big['plain_ms']:.4f} ms, bound "
         f"{c_big['bound_ms']:.4f} ms, index_add_ {wb['lib'].device_ms} ms")
     del cot_b, idx_big, hit_big
-    first = material(rows_m[0]["shape"])
+    first = material(rows_m[0][0]["shape"], tr_main)
     scatter_entry("row_scatter_add_bf16", rows_m,
                   (first["cot"], first["idx"], first["rows"], False),
                   worst_case=dict(
@@ -934,39 +1011,46 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
 
     # sky adjoint: exact, the four bilinear taps of every pixel's sky
     # lookup onto the 16 x 32 emitter (a table of 6 KB)
-    u0, v0, du, dv = em.bilinear_coords(-gbuf_p.wo.reshape(n, 3), 16, 32)
-    ew = env.shape[1]
-    taps = ((v0, u0, (1 - du) * (1 - dv)), (v0, (u0 + 1) % ew, du * (1 - dv)),
-            (torch.clamp(v0 + 1, 0, 15), u0, (1 - du) * dv),
-            (torch.clamp(v0 + 1, 0, 15), (u0 + 1) % ew, du * dv))
-    base_s = torch.randn((n, 3), generator=g, device=dev)
-    idx_s = torch.cat([(vi * ew + ui).reshape(-1)
-                       for vi, ui, _ in taps]).to(torch.int32)
-    cot_s = torch.cat([wt[:, None] * base_s for _, _, wt in taps])
+    sky_of = {}
 
-    def sky(shp):
-        if tuple(shp) != (4 * n, 3, 512):
+    def sky(shp, tr):
+        if tuple(shp) != (4 * tr.n, 3, 512):
             fail(f"unexpected shape of the exact scatter-add: {shp}")
+        if id(tr) not in sky_of:
+            u0, v0, du, dv = em.bilinear_coords(
+                -tr.gbuf.wo.reshape(tr.n, 3), 16, 32)
+            ew = tr.env.shape[1]
+            taps = ((v0, u0, (1 - du) * (1 - dv)),
+                    (v0, (u0 + 1) % ew, du * (1 - dv)),
+                    (torch.clamp(v0 + 1, 0, 15), u0, (1 - du) * dv),
+                    (torch.clamp(v0 + 1, 0, 15), (u0 + 1) % ew, du * dv))
+            base_s = torch.randn((tr.n, 3), generator=tr.g, device=dev)
+            sky_of[id(tr)] = (
+                torch.cat([wt[:, None] * base_s for _, _, wt in taps]),
+                torch.cat([(vi * ew + ui).reshape(-1)
+                           for vi, ui, _ in taps]).to(torch.int32))
+        cot_s, idx_s = sky_of[id(tr)]
         return dict(cot=cot_s, idx=idx_s, rows=512, exact=True)
     scatter_entry("row_scatter_add", by_shape_rows("row_scatter_add", sky),
-                  (cot_s, idx_s, 512, True))
+                  (*sky_of[id(tr_main)], 512, True))
+    sky_of.clear()
 
     # compaction scatters: exact, live indices ascending and unique. Shape
     # (cap, 3, rows, 1): the film accumulation, in place onto the (M, 3)
     # buffer at the film indices; (cap, 3, rows, 0): the throughput
     # adjoint onto the previous bounce's rows at sel
-    def compaction(shp):
-        sel, count, _, film = compacted_bounce(shp[0])
-        cot = dead_rows_zero(torch.randn((shp[0], 3), generator=g,
+    def compaction(shp, tr):
+        sel, count, _, film = compacted_bounce(shp[0], tr)
+        cot = dead_rows_zero(torch.randn((shp[0], 3), generator=tr.g,
                                          device=dev), count)
         if shp[3]:
             return dict(cot=cot, idx=film.contiguous(), rows=shp[2],
                         exact=True, coherent=True,
-                        base=torch.randn((shp[2], 3), generator=g,
+                        base=torch.randn((shp[2], 3), generator=tr.g,
                                          device=dev))
         return dict(cot=cot, idx=sel, rows=shp[2], exact=True, coherent=True)
     rows_c = by_shape_rows("row_scatter_add_coherent", compaction)
-    first = compaction(rows_c[0]["shape"])
+    first = compaction(rows_c[0][0]["shape"], tr_main)
     scatter_entry("row_scatter_add_coherent", rows_c,
                   (first["cot"], first["idx"], first["rows"], True))
 
@@ -982,24 +1066,28 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
         if not same:
             fail(f"compact_sel disagrees with its plain version ({tag})")
 
-    rows_s = []
-    for shp, count in shapes_of("compact_sel"):
-        call = [c for c in sel_calls
-                if (c[0].numel(), c[1]) == tuple(shp)]
-        if not call:
-            fail(f"no recorded compact_sel of shape {shp}")
-        alive, cap = call[0]
-        sel_case(f"trace flags {shp}", alive, cap)
-        ms = dev_ms(lambda: rowops.compact_sel(alive, cap))
-        lib = dev_ms(lambda: torch.nonzero(alive))
-        b_ms, _ = bound(alive.numel() + 4 * cap + 4, 0)
-        rows_s.append(dict(shape=list(shp), launches=count, ms=ms,
-                           device_ms=ms.device_ms, library_ms=lib,
-                           library_device_ms=lib.device_ms, bound_ms=b_ms))
-        log(f"    compact_sel {shp} x {count} launches: {ms:.4f} ms, device "
-            f"{ms.device_ms} ms, bound {b_ms:.5f} ms, nonzero {lib:.4f} ms, "
-            f"device {lib.device_ms} ms")
-    alive0, cap0 = [c for c in sel_calls if c[0].numel() == m][0]
+    def sel_rows(tr, shapes, where):
+        rows = []
+        for shp, count in shapes:
+            call = [c for c in tr.sels
+                    if (c[0].numel(), c[1]) == tuple(shp)]
+            if not call:
+                fail(f"no recorded compact_sel of shape {shp} ({where})")
+            alive, cap = call[0]
+            sel_case(f"{where} trace flags {shp}", alive, cap)
+            ms = dev_ms(lambda: rowops.compact_sel(alive, cap))
+            lib = dev_ms(lambda: torch.nonzero(alive))
+            b_ms, _ = bound(alive.numel() + 4 * cap + 4, 0)
+            rows.append(dict(shape=list(shp), launches=count, ms=ms,
+                             device_ms=ms.device_ms, library_ms=lib,
+                             library_device_ms=lib.device_ms, bound_ms=b_ms))
+            log(f"    {where}: compact_sel {shp} x {count} launches: "
+                f"{ms:.4f} ms, device {ms.device_ms} ms, bound {b_ms:.5f} "
+                f"ms, nonzero {lib:.4f} ms, device {lib.device_ms} ms")
+        return rows
+    rows_s = sel_rows(tr_main, shapes_of("compact_sel"), "main")
+    rows_10 = sel_rows(tr_10, path10_shapes("compact_sel"), "path 10")
+    alive0, cap0 = [c for c in tr_main.sels if c[0].numel() == m][0]
     sel_case("none alive", torch.zeros_like(alive0), cap0)
     sel_case("all alive", torch.ones_like(alive0), m)
     sel_case("more alive than the cap", torch.ones_like(alive0), cap0)
@@ -1009,6 +1097,7 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
           rows_s[0]["ms"], pms, rows_s[0]["shape"][0]
           + 4 * rows_s[0]["shape"][1] + 4, 0,
           library_ms=rows_s[0]["library_ms"], by_shape=rows_s,
+          by_shape_path10=rows_10,
           jax_function="materialist_tpu/ops/pallas/rowops.py:344")
 
     # ---- D, D′, E: the worst case at M = 4·512² seeded uniforms and the
@@ -1033,15 +1122,15 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
             f"it (allowed 2), max_abs_err {err:.3e}")
         return same and ulps <= 2, err
 
-    def recorded(name, mm):
-        call = [c for c in env_calls[name] if c[-1].numel() // c[-1].shape[-1]
-                == mm]
+    def recorded(name, mm, tr):
+        call = [c for c in tr.env_calls[name]
+                if c[-1].numel() // c[-1].shape[-1] == mm]
         if not call:
             fail(f"no recorded {name} call of {mm} queries")
         return call[0]
 
-    def sample_case(shp):
-        u2 = recorded("env_sample_dir", shp[0])[-1]
+    def sample_case(shp, tr):
+        u2 = recorded("env_sample_dir", shp[0], tr)[-1]
         return dict(run=lambda: ek.env_sample_dir(*tabs, u2),
                     check=lambda: sample_check(u2),
                     bytes=shp[0] * (8 + 16) + tab_bytes, flops=shp[0] * 120)
@@ -1050,10 +1139,11 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     ok, err = sample_check(u_s)
     ms = dev_ms(lambda: ek.env_sample_dir(*tabs, u_s))
     pms = cuda_ms(lambda: ek.env_sample_dir_plain(*tabs, u_s), iters=5)
-    rows_d = shape_rows("env_sample_dir", sample_case)
+    rows_d, rows_10 = shape_rows("env_sample_dir", sample_case)
     entry("env_sample_dir", "envkernels.cu", "envkernels.py:154",
-          ok and all_ok(rows_d), err, ms, pms, m * (8 + 16) + tab_bytes,
-          m * 120, by_shape=rows_d)
+          ok and all_ok(rows_d + rows_10), err, ms, pms,
+          m * (8 + 16) + tab_bytes, m * 120, by_shape=rows_d,
+          by_shape_path10=rows_10)
 
     # a direction within an ulp of a texel border may fall in the
     # neighbouring texel: torch divides by a scalar on the card as a
@@ -1065,8 +1155,8 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
                        pk.reshape(-1, 1), pp.reshape(-1, 1), 1e-6, 1e-5,
                        min_frac=0.9999)
 
-    def pdf_case(shp):
-        d = recorded("env_pdf_dir", shp[0])[-1]
+    def pdf_case(shp, tr):
+        d = recorded("env_pdf_dir", shp[0], tr)[-1]
         return dict(run=lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf,
                                                d),
                     check=lambda: pdf_check(d),
@@ -1077,35 +1167,42 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     ms = dev_ms(lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf, dirs))
     pms = cuda_ms(lambda: ek.env_pdf_dir_plain(sampler.m_pdf, sampler.c_pdf,
                                                dirs), iters=5)
-    rows_d = shape_rows("env_pdf_dir", pdf_case)
+    rows_d, rows_10 = shape_rows("env_pdf_dir", pdf_case)
     entry("env_pdf_dir", "envkernels.cu", "envkernels.py:317",
-          o and all_ok(rows_d), e, ms, pms, m * 16 + tab_bytes // 2, m * 60,
-          by_shape=rows_d)
+          o and all_ok(rows_d + rows_10), e, ms, pms,
+          m * 16 + tab_bytes // 2, m * 60, by_shape=rows_d,
+          by_shape_path10=rows_10)
 
     # E: the sky fetch of a chunk, one query per pixel (its only shape on
-    # the main path)
-    u0, v0, du, dv = em.bilinear_coords(-gbuf_p.wo.reshape(n, 3), 16, 32)
-    u0 = u0.to(torch.int32).contiguous()
-    v0 = v0.to(torch.int32).contiguous()
+    # the main path and on path 10)
+    def lookup_args(tr):
+        u0, v0, du, dv = em.bilinear_coords(-tr.gbuf.wo.reshape(tr.n, 3), 16,
+                                            32)
+        return (tr.env.contiguous(), u0.to(torch.int32).contiguous(),
+                v0.to(torch.int32).contiguous(), du, dv)
 
-    def lookup_check():
-        lk = ek.env_lookup_bilinear(envc, u0, v0, du, dv)
-        lp = ek.env_lookup_bilinear_plain(envc, u0, v0, du, dv)
-        return compare("env_lookup_bilinear", lk, lp, 1e-6, 1e-6)
+    def lookup_check(a):
+        lk = ek.env_lookup_bilinear(*a)
+        lp = ek.env_lookup_bilinear_plain(*a)
+        return compare(f"env_lookup_bilinear {a[1].shape[0]}", lk, lp, 1e-6,
+                       1e-6)
 
-    def lookup_case(shp):
-        if tuple(shp) != (n, 16, 32):
+    def lookup_case(shp, tr):
+        if tuple(shp) != (tr.n, 16, 32):
             fail(f"unexpected shape of the bilinear fetch: {shp}")
-        return dict(run=lambda: ek.env_lookup_bilinear(envc, u0, v0, du, dv),
-                    check=lookup_check,
-                    bytes=n * (16 + 12) + envc.numel() * 4, flops=n * 3 * 8)
+        a = lookup_args(tr)
+        return dict(run=lambda: ek.env_lookup_bilinear(*a),
+                    check=lambda: lookup_check(a),
+                    bytes=tr.n * (16 + 12) + a[0].numel() * 4,
+                    flops=tr.n * 3 * 8)
 
-    rows_e = shape_rows("env_lookup_bilinear", lookup_case)
-    pms = cuda_ms(lambda: ek.env_lookup_bilinear_plain(envc, u0, v0, du, dv),
-                  iters=5)
+    rows_e, rows_10 = shape_rows("env_lookup_bilinear", lookup_case)
+    a_e = lookup_args(tr_main)
+    pms = cuda_ms(lambda: ek.env_lookup_bilinear_plain(*a_e), iters=5)
     entry("env_lookup_bilinear", "envkernels.cu", "envkernels.py:229",
-          all_ok(rows_e), rows_e[0]["max_abs_err"], rows_e[0]["ms"], pms,
-          n * (16 + 12) + envc.numel() * 4, n * 3 * 8, by_shape=rows_e)
+          all_ok(rows_e + rows_10), rows_e[0]["max_abs_err"], rows_e[0]["ms"],
+          pms, n * (16 + 12) + envc.numel() * 4, n * 3 * 8, by_shape=rows_e,
+          by_shape_path10=rows_10)
 
     # ---- C: row gather at the continuation pack's shape, (m, 6) rows at
     # the ascending indices of a compaction into cap = 9/16 m, and at
@@ -1132,23 +1229,33 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
     log(f"  row_gather: ascending {times['ascending']:.4f} ms, bf16 "
         f"{times['bf16']:.4f} ms, random {times['random']:.4f} ms; "
         f"index_select ascending {lib_ms:.4f} ms, random {lib_r:.4f} ms")
-    rows_g = []
-    for shp, cnt in shapes_of("row_gather"):
-        n_t, k_t, m_q = shp
-        tb = torch.randn((n_t, k_t), generator=g, device=dev)
-        ix = torch.sort(torch.randint(0, n_t, (m_q,), generator=g, device=dev,
-                                      dtype=torch.int32)).values
-        o, _ = compare(f"row_gather {shp}", rowops.row_gather(tb, ix),
-                       rowops.row_gather_plain(tb, ix), 0.0, 0.0)
-        oks.append(o)
-        t_k = dev_ms(lambda: rowops.row_gather(tb, ix))
-        t_l = dev_ms(lambda: torch.index_select(tb, 0, ix))
-        rows_g.append(dict(shape=list(shp), launches=cnt, ms=t_k,
-                           device_ms=t_k.device_ms, library_ms=t_l,
-                           library_device_ms=t_l.device_ms,
-                           bound_ms=bound(m_q * (4 + 8 * k_t), 0)[0]))
-        log(f"    row_gather {shp} x {cnt} launches: device "
-            f"{t_k.device_ms} ms, index_select {t_l.device_ms} ms")
+    def gather_rows(shapes, gen, where):
+        """Seeded tables at each shape, gathered at sorted seeded
+        indices, as the trace gathers at ascending ones."""
+        rows = []
+        for shp, cnt in shapes:
+            n_t, k_t, m_q = shp
+            tb = torch.randn((n_t, k_t), generator=gen, device=dev)
+            ix = torch.sort(torch.randint(0, n_t, (m_q,), generator=gen,
+                                          device=dev,
+                                          dtype=torch.int32)).values
+            o, _ = compare(f"{where}: row_gather {shp}",
+                           rowops.row_gather(tb, ix),
+                           rowops.row_gather_plain(tb, ix), 0.0, 0.0)
+            oks.append(o)
+            t_k = dev_ms(lambda: rowops.row_gather(tb, ix))
+            t_l = dev_ms(lambda: torch.index_select(tb, 0, ix))
+            rows.append(dict(shape=list(shp), launches=cnt, ms=t_k,
+                             device_ms=t_k.device_ms, library_ms=t_l,
+                             library_device_ms=t_l.device_ms,
+                             bound_ms=bound(m_q * (4 + 8 * k_t), 0)[0]))
+            log(f"    {where}: row_gather {shp} x {cnt} launches: device "
+                f"{t_k.device_ms} ms, index_select {t_l.device_ms} ms")
+        return rows
+    rows_g = gather_rows(shapes_of("row_gather"), g, "main")
+    rows_10 = gather_rows(path10_shapes("row_gather"), tr_10.g, "path 10")
+    tr_10 = None
+    torch.cuda.empty_cache()
     # the transparency edit's rows (path 5): the trace's side table of the
     # (N, 15) transparent table, 20 wide, fetched for a chunk of 8 samples
     # a pixel at seeded hit indices. The queries repeat rows, so the bound
@@ -1173,7 +1280,8 @@ def check_kernels(torch, _lib, caps, by_shape, m_big):
         f"device {t_k.device_ms} ms, index_select {t_l.device_ms} ms")
     entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
           times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
-          library_ms=lib_ms, by_shape=rows_g, wide_rows=rows_w,
+          library_ms=lib_ms, by_shape=rows_g, by_shape_path10=rows_10,
+          wide_rows=rows_w,
           ms_bf16=times["bf16"],
           ms_random=times["random"], library_ms_random=lib_r,
           device_ms_random=times["random"].device_ms,
@@ -2648,7 +2756,9 @@ def bench_path(torch, _lib):
     goes to the log. Fails unless its times are finite and positive, no
     compaction cap saturates, the step launches every main-path kernel
     and the relight A–E and none of the gradient's or compaction's.
-    Returns (the path's launches, the rays of a chunk of its plan)."""
+    Returns (the path's launches, dict(by_shape=the launches of one fresh
+    iteration by (kernel, shape), caps=, chunk=, replay_blob=: its
+    plan))."""
     import io
 
     from materialist_tpu_torch import bench
@@ -2696,10 +2806,14 @@ def bench_path(torch, _lib):
             relight.get(k) for k in RELIGHT_KERNELS):
         fail(f"path 10: the relight launched {relight}")
     log(f"  path 10 launches: { {k: v for k, v in launches.items() if v} }")
-    m_big = report["chunk"] * BENCH_RES ** 2
+    info = dict(caps=report["caps"], chunk=report["chunk"],
+                replay_blob=report["replay_blob"], by_shape={})
+    for key, v in report["launches_by_shape"].items():
+        name, _, shp = key.partition(" ")
+        info["by_shape"][(name, tuple(json.loads(shp)))] = v
     del report
     torch.cuda.empty_cache()
-    return launches, m_big
+    return launches, info
 
 
 # ---------------------------------------------------- path 9: multi-device

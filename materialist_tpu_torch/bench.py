@@ -64,6 +64,7 @@ from materialist_tpu_torch.render.scene import (GBuffer, Materials,
 from materialist_tpu_torch.render.shader import (RenderConfig,
                                                  compact_cap_utilization,
                                                  probe_compact_caps)
+from materialist_tpu_torch.utils.profiling import device_summary
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(REPO, "output_imgs", "runs", "photo_e2e")
@@ -76,13 +77,6 @@ LR = 3e-4
 OOM_ATTEMPTS = 3
 RELIGHT_SPP = 64
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-# the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNELS = ("march_kernel", "shade_fwd_kernel", "shade_bwd_kernel",
-                "scatter_rows_kernel", "compact_count_kernel",
-                "compact_write_kernel", "gather_kernel",
-                "env_sample_dir_kernel", "env_pdf_dir_kernel",
-                "env_lookup_bilinear_kernel", "onehot_gather_kernel",
-                "lookup4_kernel", "vreg_gather_smem_kernel")
 # bench.py's model of a path's traffic: 3 scattering vertices, each with
 # 110 B of records touched 4 times and a 12-channel row gather plus an
 # 8-channel scatter adjoint (96 B); 2 kflop of shading a vertex
@@ -248,37 +242,26 @@ def _launches_since(before):
 
 
 def _busy(fn, dev: torch.device) -> dict:
-    """Device-busy ms of ``fn()`` under ``torch.profiler``, its share of
-    the (profiled, so slowed) host time, the device operations, the ms
-    and launches of the port's own kernels among them, the ten that take
-    the most device time and the ten ``aten`` operators whose kernels
-    do."""
+    """``profiling.device_summary`` of ``fn()`` under ``torch.profiler``,
+    against the (profiled, so slowed) host time. Raises unless the port's
+    kernels the profiler saw are those the launch counters counted."""
     from torch.profiler import ProfilerActivity, profile
+    before = dict(_lib.LAUNCHES)
     _sync(dev)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         _sync(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-          and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.device_time_total for e in ev) / 1e3
-    ours = [e for e in ev if "at::" not in e.key
-            and any(k in e.key for k in PORT_KERNELS)]
-    top = sorted(ev, key=lambda e: -e.device_time_total)[:10]
-    # the host operators whose own kernels take the most device time
-    ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:10]
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms
-                / wall_ms, device_ops=sum(e.count for e in ev),
-                port_kernels_ms=sum(e.device_time_total for e in ours) / 1e3,
-                port_kernel_launches=sum(e.count for e in ours),
-                top=[(e.key[:60], e.count, e.device_time_total / 1e3)
-                     for e in top],
-                top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
-                         for e in ops])
+    summary = device_summary(prof, (time.perf_counter() - t0) * 1e3)
+    counted = sum((v - before[k]) * _lib.KERNELS_PER_LAUNCH.get(k, 1)
+                  for k, v in _lib.LAUNCHES.items())
+    if summary["port_kernel_launches"] != counted:
+        raise RuntimeError(
+            f"the profiler saw {summary['port_kernel_launches']} launches "
+            f"of the port's kernels {_lib.kernel_names()}, the launch "
+            f"counters {counted}")
+    return summary
 
 
 def parse_args(argv=None):

@@ -41,6 +41,9 @@ LAUNCHES = {name: 0 for name in (
 
 # (name, shape tuple) -> launches; each wrapper says what its shape lists
 LAUNCHES_BY_SHAPE = {}
+# kernels that one counted launch runs where it is more than one
+# (compact_sel: its count and its write kernel)
+KERNELS_PER_LAUNCH = {"compact_sel": 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +63,18 @@ def count_launch(name: str, shape=None) -> None:
     if shape is not None:
         key = (name, tuple(shape))
         LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
+def kernel_names() -> tuple:
+    """The ``__global__`` functions of ``SOURCES``, the names under which
+    a profiler lists the port's kernels."""
+    import re
+    names = []
+    for src in SOURCES:
+        with open(os.path.join(CSRC, src)) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\s*\([^)]*\)\s+)?(\w+)\s*\(", f.read())
+    return tuple(names)
 
 
 def _nvcc() -> str:

@@ -1,7 +1,8 @@
 """Profiling utilities (counterpart of ``materialist_tpu/utils/profiling.py``):
 a phase timer that aggregates wall-clock per optimization phase (it
 synchronizes the card at both ends, so a phase's time is its device
-time) and a JSON-lines log."""
+time), a JSON-lines log, and the device-time summary of a
+``torch.profiler`` profile."""
 
 from __future__ import annotations
 
@@ -65,3 +66,30 @@ class JsonlLogger:
     def close(self):
         if self._fh:
             self._fh.close()
+
+
+def device_summary(prof, wall_ms: float) -> dict:
+    """Device time of a stopped ``torch.profiler`` profile: the busy ms
+    (the sum over every kernel), its share of ``wall_ms``, the device
+    operations, the ms and launches of the port's own kernels (those of
+    ``_lib.kernel_names``), the ten kernels that take the most device
+    time and the ten ``aten`` operators whose own kernels do."""
+    from materialist_tpu_torch.ops.kernels import _lib
+    names = _lib.kernel_names()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+          and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.device_time_total for e in ev) / 1e3
+    ours = [e for e in ev if "at::" not in e.key
+            and any(k in e.key for k in names)]
+    top = sorted(ev, key=lambda e: -e.device_time_total)[:10]
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms
+                / wall_ms, device_ops=sum(e.count for e in ev),
+                port_kernels_ms=sum(e.device_time_total for e in ours) / 1e3,
+                port_kernel_launches=sum(e.count for e in ours),
+                top=[(e.key[:60], e.count, e.device_time_total / 1e3)
+                     for e in top],
+                top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
+                         for e in ops])

@@ -36,19 +36,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def _device_summary(prof, wall_ms):
-    """Device-busy time, its share of the wall time, launches and the ten
-    heaviest kernels of a stopped profile."""
-    ev = [e for e in prof.key_averages()
-          if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-    busy = sum(e.device_time_total for e in ev) / 1e3
-    return dict(device_busy_ms=busy, device_busy_share=busy / wall_ms,
-                kernels_launched=sum(e.count for e in ev),
-                top=[(e.key[:60], e.count, round(e.device_time_total / 1e3, 3))
-                     for e in sorted(ev, key=lambda e:
-                                     -e.device_time_total)[:10]])
-
-
 def forward_pass(torch, chip_smoke):
     """One 64-spp relight pass: render and denoise, each timed alone."""
     from torch.profiler import ProfilerActivity, profile
@@ -57,6 +44,7 @@ def forward_pass(torch, chip_smoke):
     from materialist_tpu_torch.render.denoise import atrous_denoise
     from materialist_tpu_torch.render.shader import (RenderConfig,
                                                      render_with_bsdf)
+    from materialist_tpu_torch.utils.profiling import device_summary
     cam, gbuf, mats, env = chip_smoke.photo_scene(torch, torch.device("cuda"))
     cfg = RenderConfig(spp=64, chunk=8, film_jitter=0.5)
 
@@ -83,7 +71,7 @@ def forward_pass(torch, chip_smoke):
             out[part] = {"ms": ms}
             if prof is not None:
                 prof.stop()
-                out[part].update(_device_summary(prof, ms))
+                out[part].update(device_summary(prof, ms))
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         return out
 
@@ -111,6 +99,7 @@ def main():
     from materialist_tpu_torch.opt.step import make_phase_step
     from materialist_tpu_torch.render.shader import (RenderConfig,
                                                      probe_compact_caps)
+    from materialist_tpu_torch.utils.profiling import device_summary
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -152,7 +141,7 @@ def main():
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         if prof is not None:
             prof.stop()
-            out.update(_device_summary(prof, (t2 - t0) * 1e3))
+            out.update(device_summary(prof, (t2 - t0) * 1e3))
         return out
 
     variants = {"plain": base, "compacted": base._replace(compact_caps=caps)}

@@ -18,7 +18,12 @@ package's ``bench.py`` on the CPU.
   learning rate;
 - ``main`` on the CPU at 32² prints a last line with every key of the
   result line and no ``vs_baseline``;
-- a missing scene file raises: there is no synthetic fallback.
+- a missing scene file raises: there is no synthetic fallback;
+- the material adjoint's cotangent rows (what ``_ReuseGather.backward``
+  scatters, kernel C′) are exactly zero for a vertex whose march missed
+  (uncompacted) and for a compacted bounce's padding rows, and not all
+  zero elsewhere: chip_smoke.py's scatter row at the bench's chunk zeroes
+  the missed rows' noise on this ground.
 """
 
 import json
@@ -41,8 +46,12 @@ from materialist_tpu.render.scene import load_best_results as jload
 from materialist_tpu.render.scene import make_gbuffer as jgbuf
 from materialist_tpu.render.shader import RenderConfig as JCfg
 from materialist_tpu_torch import bench, rng
+from materialist_tpu_torch.camera import Camera
 from materialist_tpu_torch.opt import schedules
-from materialist_tpu_torch.opt.step import param_list
+from materialist_tpu_torch.opt.step import make_phase_step, param_list
+from materialist_tpu_torch.render import bsdf as bsdf_mod
+from materialist_tpu_torch.render.scene import Materials, make_gbuffer
+from materialist_tpu_torch.render.shader import RenderConfig, n_chunks_of
 from torch_step_common import check_grad, jax_fused_shade
 
 torch.set_num_threads(2)
@@ -195,3 +204,59 @@ def test_missing_scene_file_raises(tmp_path, missing):
     os.remove(scene / missing)
     with pytest.raises(FileNotFoundError, match=missing):
         bench.load_scene(str(scene), RES, "cpu")
+
+
+@pytest.mark.parametrize("caps", [(), (0.5, 0.25)],
+                         ids=["uncompacted", "compacted"])
+def test_missed_vertices_carry_no_material_cotangent(monkeypatch, caps):
+    r = np.random.default_rng(0)
+    depth = (2.0 + 0.3 * r.uniform(size=(RES, RES))).astype(np.float32)
+    depth[6:16, 8:22] -= 0.7
+    depth[20:28, 3:12] -= 0.4
+    cam = Camera(RES, RES)
+    gbuf = make_gbuffer(depth, cam, flip_depth=False)
+
+    def u(lo, hi, c):
+        return torch.from_numpy(r.uniform(lo, hi, (RES, RES, c)).astype(
+            np.float32))
+    params = {"albedo": u(0.2, 0.9, 3), "roughness": u(0.2, 0.9, 1),
+              "metallic": u(0.0, 0.5, 1), "normal": gbuf.normal_geo.clone(),
+              "envmap": torch.from_numpy(((r.uniform(size=(16, 32, 3)) + 0.1)
+                                          * 2).astype(np.float32))}
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    gt = u(0.05, 0.6, 3)
+
+    def loss_of(maps, img, extra):
+        loss = torch.mean((img - gt) ** 2)
+        return loss, loss.detach()
+
+    cfg = RenderConfig(spp=4, chunk=2, march_steps=6, shadow_steps=4,
+                       compact_caps=caps)
+    phase = make_phase_step(cfg, cam, gbuf, bench.maps_of, loss_of,
+                            device="cpu")
+    records = phase.trace_all(params, None, rng.key(1))
+    # the rows of each index array the shade pass hands the reuse gather
+    # that belong to no live vertex
+    dead = {}
+    for chunk in records[0][0]:
+        for rec in chunk:
+            dead[rec.idx.data_ptr()] = ~rec.hit
+            if rec.extras is not None:
+                _, count, vtx, _ = rec.extras
+                dead[vtx.data_ptr()] = torch.arange(vtx.shape[0]) >= count
+    seen = []
+    backward = bsdf_mod._ReuseGather.backward
+
+    def recorded(ctx, cot):
+        (idx,) = ctx.saved_tensors
+        seen.append((dead[idx.data_ptr()], cot.detach().clone()))
+        return backward(ctx, cot)
+    monkeypatch.setattr(bsdf_mod._ReuseGather, "backward",
+                        staticmethod(recorded))
+    phase.value_and_grad(params, None, records)
+    assert len(seen) == n_chunks_of(cfg) * (cfg.max_depth - 2)
+    for d, cot in seen:
+        d = d.reshape(cot.shape[:-1])
+        assert d.any() and (~d).any()
+        assert torch.equal(cot[d], torch.zeros_like(cot[d]))
+        assert (cot[~d] != 0).any()

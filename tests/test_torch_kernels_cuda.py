@@ -114,9 +114,11 @@ def test_march_and_material_adjoint_at_the_1024_chunk(card, scene):
     cot = torch.randn((s * n, 8), device=card,
                       generator=torch.Generator(card).manual_seed(5))
     cot[:, 5:] = 0.0
-    # a vertex that missed has no material, so no cotangent: noise there
-    # would pile millions of terms onto row 0, whose float32 sum differs
-    # by its order alone by more than 1e-5 of the largest value
+    # a vertex that missed has no material, so no cotangent
+    # (test_torch_bench.py::test_missed_vertices_carry_no_material_
+    # cotangent): noise there would pile millions of terms onto row 0,
+    # whose float32 sum differs by its order alone by more than 1e-5 of
+    # the largest value
     cot = torch.where(hk.hit.reshape(s * n, 1), cot, 0.0)
     a = rowops.row_scatter_add(cot, idx, n, exact=False)
     b = rowops.row_scatter_add_plain(cot, idx, n, exact=False)

@@ -250,3 +250,21 @@ def test_launch_counts_by_shape():
                                       ("compact_sel", (8, 4)): 1}
     _lib.reset_launches()
     assert not _lib.LAUNCHES_BY_SHAPE and not any(_lib.LAUNCHES.values())
+
+
+def test_kernel_names_cover_every_global_function():
+    """The profiler summary counts the port's kernels by the names
+    ``_lib.kernel_names`` reads from the sources: one for every
+    ``__global__`` function, none of them a name the counters lack a
+    kernel for."""
+    import os
+    import re
+
+    from materialist_tpu_torch.ops.kernels import _lib
+    names = _lib.kernel_names()
+    n_global = sum(len(re.findall(r"__global__", open(
+        os.path.join(_lib.CSRC, src)).read())) for src in _lib.SOURCES)
+    assert len(names) == len(set(names)) == n_global
+    assert {"march_kernel", "compact_count_kernel",
+            "compact_write_kernel"} <= set(names)
+    assert set(_lib.KERNELS_PER_LAUNCH) <= set(_lib.LAUNCHES)
