@@ -25,8 +25,12 @@ minutes on an NVIDIA H100, the kernels' build included). It
    at that plan's chunk (8·1024² rays of a seeded depth map). The
    envmap sampler's rows and columns must equal its plain version's on
    every query, its directions and pdfs lie within 2 units in the last
-   place. This runs after the main path, whose launches by shape it
-   prints first, and path 10;
+   place. The adjoint's envmap gradient is held to a float64 sum of the
+   same taps, at those shapes and on a one-hot envmap (every NEE sample
+   on one texel) and a 64x64 one, and the whole backward is timed against
+   the contraction it replaced. This runs after the main path, whose
+   launches by shape it prints first, and path 10, on neither of which
+   the bounce's backward may run that contraction;
 3. drives the paths, each with the launch counters set to 0 just before
    and read just after:
    - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
@@ -120,6 +124,7 @@ H100_TF32_FLOPS = 495e12       # TF32 on the tensor cores, dense
 FLOPS_PER_MARCH_STEP = 24      # project + compare + updates, per step
 FLOPS_SHADE_FWD = 260          # per vertex: 2 BRDF evals, 2 fetches, MIS
 FLOPS_SHADE_BWD = 520          # per vertex: forward replay + adjoint
+FLOPS_ENV_TAPS = 60            # per vertex: 2 looks x (4 weights, 12 taps)
 LOG = []
 TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
 # kernels of the gradient and of compaction: no launch on a path without
@@ -244,13 +249,29 @@ def main():
         _flush_log()
         return
 
-    main_launches, by_shape, caps = main_path(torch, _lib)
-    log("launches by shape: " + json.dumps(
-        [{"name": nm, "shape": list(shp), "launches": v}
-         for (nm, shp), v in sorted(by_shape.items(),
-                                    key=lambda kv: (kv[0][0], -kv[1]))]))
-    # path 10 before the kernel rows: they take its shapes and plan
-    bench_launches, bench_info = bench_path(torch, _lib)
+    # B′ sums the envmap gradient on the card: the bounce's backward must
+    # not run the one-hot contraction of its plain version there
+    from materialist_tpu_torch.ops.kernels import shadebounce as sb
+    contraction, contractions = sb._denv_from_dle, []
+
+    def counted(*a):
+        contractions.append(a[0].device.type)
+        return contraction(*a)
+    sb._denv_from_dle = counted
+    try:
+        main_launches, by_shape, caps = main_path(torch, _lib)
+        log("launches by shape: " + json.dumps(
+            [{"name": nm, "shape": list(shp), "launches": v}
+             for (nm, shp), v in sorted(by_shape.items(),
+                                        key=lambda kv: (kv[0][0], -kv[1]))]))
+        # path 10 before the kernel rows: they take its shapes and plan
+        bench_launches, bench_info = bench_path(torch, _lib)
+    finally:
+        sb._denv_from_dle = contraction
+    if contractions:
+        fail(f"_denv_from_dle ran {len(contractions)} times on paths 1 and "
+             "10: the bounce's backward left the kernel")
+    log("_denv_from_dle: 0 calls on paths 1 and 10 (B′ sums d_env)")
     kernels = check_kernels(torch, _lib, caps, by_shape, bench_info)
     launches = {"main": main_launches, "path 10": bench_launches,
                 "nee_false": nee_false_path(torch, _lib),
@@ -534,6 +555,44 @@ def capture_trace(torch, scene, cfg, g):
         marches=marches, sels=sels, env_calls=env_calls, g=g)
 
 
+def bounce_inputs(torch, mm, tr):
+    """The fused bounce's arguments of the bounce of trace ``tr`` that
+    ran ``mm`` rows, assembled as the shade pass assembles them,
+    except the incoming throughput, which is seeded uniform noise (as
+    the adjoint's cotangents are seeded normal noise): the bounces
+    before are not replayed, and neither time nor agreement hangs on
+    them."""
+    from materialist_tpu_torch.ops.kernels import rowops
+    from materialist_tpu_torch.render import shader
+    b = [i for i, r in enumerate(tr.recs) if r.aux.numel() // 5 == mm]
+    if not b:
+        fail(f"no recorded bounce of {mm} rows")
+    b = b[0]
+    rec = tr.recs[b]
+    tgt = rec.aux.shape[:-1]
+    if b == 0 and tr.cfg.film_jitter > 0.0:
+        _, _, wo_b, _ = shader._primary_state(
+            tr.key, tr.cfg, tr.cam, tr.gbuf, tr.cfg.chunk)
+        blob_b = tr.table5.expand(tgt + (5,))
+    elif b == 0:
+        wo_b = tr.gbuf.wo.reshape(tr.n, 3)
+        blob_b = tr.table5.expand(tgt + (5,))
+    else:
+        w_prev = tr.recs[b - 1].aux[..., 0:3].float()
+        if rec.extras is not None:
+            w_prev = rowops.gather_rows_coherent(w_prev.reshape(-1, 3),
+                                                 rec.extras[0])[None]
+        wo_b = -shader._normalize9(w_prev)
+        blob_b = rec.blob.float()
+    aux_b = torch.cat([wo_b.expand(tgt + (3,)).to(torch.bfloat16),
+                       rec.aux], -1)
+    return (tr.env.contiguous(), blob_b.reshape(mm, 5).contiguous(),
+            torch.rand((mm, 3), generator=tr.g, device=tr.env.device),
+            rec.nrm.reshape(mm, 3).contiguous(),
+            aux_b.reshape(mm, 8).contiguous(),
+            rec.recb.reshape(mm, 13).contiguous())
+
+
 def ulp_distance(torch, a, b):
     """Largest distance between two float32 tensors in units in the last
     place (the distance of their bit patterns on the ordered line)."""
@@ -742,21 +801,25 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         for tr, shapes, where in (
                 (tr_main, shapes_of(counter), "main"),
                 (tr_10, path10_shapes(counter), "path 10")):
-            rows = []
-            for shp, count in shapes:
-                c = case_of(shp, tr)
-                ok, err = c["check"]()
-                ms = dev_ms(c["run"])
-                b_ms, b_by = bound(c["bytes"], c["flops"])
-                rows.append(dict(shape=list(shp), launches=count, ok=ok,
-                                 max_abs_err=err, ms=ms,
-                                 device_ms=ms.device_ms, bound_ms=b_ms,
-                                 bound_by=b_by))
-                log(f"    {where}: {counter} {shp} x {count} launches: "
-                    f"{ms:.4f} ms, device {ms.device_ms} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by})")
-            out_rows.append(rows)
+            out_rows.append([case_row(case_of(shp, tr), shp, count,
+                                      f"{where}: {counter}")
+                             for shp, count in shapes])
         return out_rows
+
+    def case_row(c, shp, count, what):
+        """Check and time one case; ``c["extra"]``, where given, adds
+        more timed columns to its row."""
+        ok, err = c["check"]()
+        ms = dev_ms(c["run"])
+        b_ms, b_by = bound(c["bytes"], c["flops"])
+        row = dict(shape=list(shp), launches=count, ok=ok, max_abs_err=err,
+                   ms=ms, device_ms=ms.device_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        log(f"    {what} {list(shp)} x {count} launches: {ms:.4f} ms, "
+            f"device {ms.device_ms} ms, bound {b_ms:.4f} ms ({b_by})")
+        if "extra" in c:
+            row.update(c["extra"]())
+        return row
 
     def all_ok(rows):
         return all(r.pop("ok") for r in rows)
@@ -777,41 +840,6 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     envc = env.contiguous()
     args = (envc, blob, thr, nrmf, auxf.contiguous(), recb)
 
-    def shade_inputs(mm, tr):
-        """The fused bounce's arguments of the bounce of trace ``tr`` that
-        ran ``mm`` rows, assembled as the shade pass assembles them,
-        except the incoming throughput, which is seeded uniform noise (as
-        the adjoint's cotangents are seeded normal noise): the bounces
-        before are not replayed, and neither time nor agreement hangs on
-        them."""
-        b = [i for i, r in enumerate(tr.recs) if r.aux.numel() // 5 == mm]
-        if not b:
-            fail(f"no recorded bounce of {mm} rows")
-        b = b[0]
-        rec = tr.recs[b]
-        tgt = rec.aux.shape[:-1]
-        if b == 0 and tr.cfg.film_jitter > 0.0:
-            _, _, wo_b, _ = shader._primary_state(
-                tr.key, tr.cfg, tr.cam, tr.gbuf, tr.cfg.chunk)
-            blob_b = tr.table5.expand(tgt + (5,))
-        elif b == 0:
-            wo_b = tr.gbuf.wo.reshape(tr.n, 3)
-            blob_b = tr.table5.expand(tgt + (5,))
-        else:
-            w_prev = tr.recs[b - 1].aux[..., 0:3].float()
-            if rec.extras is not None:
-                w_prev = rowops.gather_rows_coherent(w_prev.reshape(-1, 3),
-                                                     rec.extras[0])[None]
-            wo_b = -shader._normalize9(w_prev)
-            blob_b = rec.blob.float()
-        aux_b = torch.cat([wo_b.expand(tgt + (3,)).to(torch.bfloat16),
-                           rec.aux], -1)
-        return (tr.env.contiguous(), blob_b.reshape(mm, 5).contiguous(),
-                torch.rand((mm, 3), generator=tr.g, device=dev),
-                rec.nrm.reshape(mm, 3).contiguous(),
-                aux_b.reshape(mm, 8).contiguous(),
-                rec.recb.reshape(mm, 13).contiguous())
-
     def fwd_check(a):
         tk, rk = sb.shade_bounce_fwd(*a)
         tp, rp = sb.shade_bounce_fwd_plain(*a)
@@ -822,31 +850,78 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         return ok1 and ok2, max(e1, e2)
 
     def bwd_check(a, ct_t, ct_r):
-        gk = sb.shade_bounce_bwd(*a, ct_t, ct_r)
-        gp = sb.shade_bounce_bwd_explicit(*a, ct_t, ct_r)
+        """B′ against its plain version: d_blob and d_thr against the
+        explicit adjoint; d_env against a float64 sum of the same taps
+        (``denv_taps`` of the explicit d_le), within 4 times the distance
+        of the float32 plain version (``_denv_from_dle``) from that sum,
+        or 1e-6 of the largest bin's sum of |taps| where that is larger:
+        the kernel sums in another order, by atomics. Returns (ok, max
+        abs error, the d_env numbers)."""
+        d_blob, d_thr, d_env = sb.shade_bounce_bwd(*a, ct_t, ct_r)
+        p_blob, p_thr, d_le = sb.shade_bounce_bwd_explicit(*a, ct_t, ct_r)
         oks, errs = [], []
-        for nm, x, y in zip(("d_blob", "d_thr", "d_le"), gk, gp):
+        for nm, x, y in (("d_blob", d_blob, p_blob), ("d_thr", d_thr, p_thr)):
             o, e = compare(f"shade_bounce_bwd {nm}", x, y,
                            1e-5 * float(y.abs().max()), 1e-4)
             oks.append(o)
             errs.append(e)
-        return all(oks), max(errs)
+        h, w = a[0].shape[:2]
+        ref = sb.denv_taps(h, w, a[5], d_le)
+        scale = float(sb.denv_taps(h, w, a[5], d_le.abs()).max())
+        e_plain = float((sb._denv_from_dle(a[0], a[5], d_le).double()
+                         - ref).abs().max())
+        e_env = float((d_env.double() - ref).abs().max())
+        limit = max(4 * e_plain, 1e-6 * scale)
+        o = bool(torch.isfinite(d_env).all()) and e_env <= limit
+        log(f"  shade_bounce_bwd d_env: max_abs_err {e_env:.3e} from the "
+            f"float64 tap sum; float32 contraction {e_plain:.3e}; limit "
+            f"{limit:.3e} (largest bin's |tap| sum {scale:.3e}) "
+            f"{'ok' if o else 'FAIL'}")
+        return all(oks) and o, max(errs), dict(
+            d_env_err=e_env, d_env_err_contraction=e_plain,
+            d_env_limit=limit)
 
     def fwd_case(shp, tr):
-        a = shade_inputs(shp[0], tr)
+        a = bounce_inputs(torch, shp[0], tr)
         return dict(run=lambda: sb.shade_bounce_fwd(*a),
                     check=lambda: fwd_check(a),
                     bytes=shp[0] * (80 + 24) + envc.numel() * 4,
                     flops=shp[0] * FLOPS_SHADE_FWD)
 
     def bwd_case(shp, tr):
-        a = shade_inputs(shp[0], tr)
+        """B′ with d_env, as the envmap phases call it; the extra columns
+        time it without d_env (the material phases) and the backward it
+        replaced: B′ without d_env, then the one-hot contraction on the
+        explicit d_le (the old kernel also wrote d_le, 24 B a row, which
+        this leaves out)."""
+        a = bounce_inputs(torch, shp[0], tr)
         ct = [torch.randn((shp[0], 3), generator=tr.g, device=dev)
               for _ in range(2)]
-        return dict(run=lambda: sb.shade_bounce_bwd(*a, *ct),
-                    check=lambda: bwd_check(a, *ct),
-                    bytes=shp[0] * (104 + 56) + envc.numel() * 4,
-                    flops=shp[0] * FLOPS_SHADE_BWD)
+        info = {}
+
+        def check():
+            ok, err, more = bwd_check(a, *ct)
+            info.update(more)
+            return ok, err
+
+        def extra():
+            d_le = sb.shade_bounce_bwd_explicit(*a, *ct)[2]
+            no_env = dev_ms(lambda: sb.shade_bounce_bwd(*a, *ct,
+                                                        env_grad=False))
+            old = dev_ms(lambda: (
+                sb.shade_bounce_bwd(*a, *ct, env_grad=False),
+                sb._denv_from_dle(a[0], a[5], d_le)))
+            log(f"      without d_env {no_env:.4f} ms, device "
+                f"{no_env.device_ms} ms; the replaced backward (B′, then "
+                f"_denv_from_dle) {old:.4f} ms, device {old.device_ms} ms")
+            return dict(info, ms_no_env=no_env,
+                        device_ms_no_env=no_env.device_ms, old_ms=old,
+                        old_device_ms=old.device_ms)
+
+        return dict(run=lambda: sb.shade_bounce_bwd(*a, *ct), check=check,
+                    extra=extra, args=a,
+                    bytes=shp[0] * (104 + 32) + 2 * a[0].numel() * 4,
+                    flops=shp[0] * (FLOPS_SHADE_BWD + FLOPS_ENV_TAPS))
 
     ok, err = fwd_check(args)
     ms = dev_ms(lambda: sb.shade_bounce_fwd(*args))
@@ -859,15 +934,41 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
 
     ct_t = torch.randn((m, 3), generator=g, device=dev)
     ct_r = torch.randn((m, 3), generator=g, device=dev)
-    ok, err = bwd_check(args, ct_t, ct_r)
+    ok, err, _ = bwd_check(args, ct_t, ct_r)
     ms = dev_ms(lambda: sb.shade_bounce_bwd(*args, ct_t, ct_r))
-    pms = cuda_ms(lambda: sb.shade_bounce_bwd_explicit(*args, ct_t, ct_r),
+    pms = cuda_ms(lambda: sb.shade_bounce_bwd_plain(*args, ct_t, ct_r),
                   iters=5)
     rows_b, rows_10 = shape_rows("shade_bounce_bwd", bwd_case)
+    # d_env's hard cases, on bounce 0 of a trace chunk at the main path's
+    # caps (4·512² rows): a one-hot envmap, whose NEE samples nearly all
+    # land on one texel, so most lanes of a warp add to one bin, and a
+    # 64x64 envmap (emitter and table: 96 KB of shared memory)
+    hot = torch.zeros_like(envc)
+    hot.view(-1, 3)[int(envc.sum(-1).argmax())] = 10.0
+    env64 = torch.nn.functional.interpolate(
+        envc.permute(2, 0, 1)[None], size=(64, 64), mode="bilinear",
+        align_corners=False)[0].permute(1, 2, 0).contiguous()
+    env_cases = []
+    for tag, e in (("one-hot envmap", hot), ("64x64 envmap", env64)):
+        tr_e = capture_trace(
+            torch, (cam_p, gbuf_p, mats_p, e),
+            cfg._replace(compact_caps=tuple(caps)),
+            torch.Generator(device=dev).manual_seed(SEED + 3))
+        shp = (m, e.shape[0], e.shape[1])
+        c = bwd_case(shp, tr_e)
+        rb, on = c["args"][5], c["args"][4][:, 6].float() > 0
+        bins = (rb[:, 10].float() * e.shape[1] + rb[:, 9].float()).long()
+        share = float(torch.bincount(bins[on]).max()) / max(int(on.sum()), 1)
+        log(f"    {tag}: {share:.4f} of the NEE looks on one base tap")
+        env_cases.append(dict(case=tag, nee_top_bin_share=share,
+                              **case_row(c, shp, 0,
+                                         f"{tag}: shade_bounce_bwd")))
+        del tr_e, c
     entry("shade_bounce_bwd", "shadebounce.cu", "shadebounce.py:297",
-          ok and all_ok(rows_b + rows_10), err, ms, pms,
-          m * (104 + 56) + envc.numel() * 4, m * FLOPS_SHADE_BWD,
-          by_shape=rows_b, by_shape_path10=rows_10)
+          ok and all_ok(rows_b + rows_10 + env_cases), err, ms, pms,
+          m * (104 + 32) + 2 * envc.numel() * 4,
+          m * (FLOPS_SHADE_BWD + FLOPS_ENV_TAPS), by_shape=rows_b,
+          by_shape_path10=rows_10, env_cases=env_cases)
 
     # ---- C′ by caller. Each is checked and timed at every main-path
     # shape on the recorded chunk's indices, its dead rows zero; the

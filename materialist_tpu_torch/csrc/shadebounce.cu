@@ -2,25 +2,47 @@
 // evaluations (NEE direction and lobe direction), two bilinear emitter
 // fetches from the recorded tap coords, balance-heuristic MIS, and the
 // (throughput', radiance delta) update; the backward emits d_blob (albedo,
-// roughness, metallic), d_throughput and d_le (the two fetches).
+// roughness, metallic), d_throughput and, where the caller asks for it,
+// d_env, the emitter table's gradient (H, W, 3).
 //
 // Replaces the Pallas kernels of materialist_tpu/ops/pallas/shadebounce.py
 // (_fwd_call/_make_fwd_kernel and _bwd_call/_make_bwd_kernel of
-// shade_bounce_fused; the math is _bounce_math and _disney_soa).
+// shade_bounce_fused; the math is _bounce_math and _disney_soa) and the
+// envmap gradient that follows the backward there (_denv_from_dle).
 //
 // Bound on the H100: device-memory bytes. Per vertex the forward reads
 // 80 B (blob 20, throughput 12, f16 normal 6, bf16 aux 16, bf16 record 26)
 // and writes 24 B against ~250 FP32 operations; the backward reads 104 B
-// and writes 56 B. The TPU kernel repacked every input into (C, 8, 128)
-// planes in device memory before the call and ran the adjoint as an
-// in-kernel jax.vjp; here one thread shades one vertex straight from the
-// recorded bf16/f16 rows (no repacking pass), the emitter (<= 64x64x3 f32)
-// sits in shared memory, and the adjoint is derived by hand (its plain
-// PyTorch transcription, shade_bounce_bwd_explicit, is held against
-// torch.autograd of the forward in the tests). pdf_b and pdf_b_at_e are
-// detached; a gated-off term contributes exactly zero value and zero
+// and writes 32 B (d_blob, d_throughput). The TPU kernel repacked every
+// input into (C, 8, 128) planes in device memory before the call and ran
+// the adjoint as an in-kernel jax.vjp; here one thread shades one vertex
+// straight from the recorded bf16/f16 rows (no repacking pass), the emitter
+// (<= 64x64x3 f32) sits in shared memory, and the adjoint is derived by
+// hand (its plain PyTorch transcription, shade_bounce_bwd_explicit, is held
+// against torch.autograd of the forward in the tests). pdf_b and pdf_b_at_e
+// are detached; a gated-off term contributes exactly zero value and zero
 // cotangent even where it would be inf/NaN; the nan_to_num of the lobe
 // weight passes its cotangent only where the weight was finite.
+//
+// d_env is accumulated here, not contracted on tensor cores. The TPU
+// kernel wrote each vertex's two fetch cotangents (d_le, 24 B) and a
+// one-hot contraction on the MXU summed them afterwards, because a tap
+// scatter was VPU-bound there. That contraction has 1,536 output bins
+// (16x32x3), a contraction length of M and no reuse of either operand:
+// on this card it is bound by the bytes of its one-hot planes, far from
+// the tensor cores. Here each look's cotangent goes to its 4 bilinear
+// taps (u wraps at the seam, v clamps at the pole: both v taps of a pole
+// row land on one bin) in a per-block table in shared memory beside the
+// emitter copy, and each block adds its nonzero bins into d_env with
+// global float atomics at its end: d_le never reaches device memory.
+// Gated-off looks add nothing. NEE directions crowd onto the sampler's
+// bright texels and escaped rays of one warp see nearly the same sky, so
+// many lanes of a warp hit one bin: the lanes that share a look's base tap
+// are grouped with __match_any_sync and their 12 tap values summed by
+// shuffles in log2(group) steps, and only the group's lowest lane adds them
+// into shared memory. The atomics add in an order that changes from run to
+// run, so d_env's last bits do too, as the step's already do through C'
+// (csrc/rowops.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -230,6 +252,60 @@ __global__ void shade_fwd_kernel(const float* __restrict__ env_g,
   }
 }
 
+// Sums each x[k] over the lanes of the warp whose key is this lane's
+// (peers: __match_any_sync's mask of them); the lowest lane of each group
+// ends with its group's sums. A pairwise tree in the order of the lanes,
+// so a group of g lanes takes ceil(log2 g) steps and a lane alone none.
+// Every lane of the warp calls it.
+template <int N>
+__device__ __forceinline__ void reduce_peers(unsigned peers, float (&x)[N]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned above = peers & (0xfffffffeu << lane);
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above);  // 1 + the lane of the next peer, or 0
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float t = __shfl_sync(0xffffffffu, x[k], (next - 1) & 31);
+      if (next) x[k] += t;
+    }
+    // the peers of odd rank are summed into the one below them
+    above &= ~__ballot_sync(0xffffffffu, rank & 1);
+    rank >>= 1;
+  }
+}
+
+// Adds one look's fetch cotangent ct[3] to its 4 bilinear taps in the
+// block's table acc (the taps of lookup4). A lane with on == false adds
+// nothing. Every lane of the warp calls it.
+__device__ __forceinline__ void scatter_look(float* acc, int h, int w,
+                                             bool on, int u0, int v0,
+                                             float du, float dv,
+                                             const float ct[3]) {
+  const float wt[4] = {(1.f - du) * (1.f - dv), du * (1.f - dv),
+                       (1.f - du) * dv, du * dv};
+  float x[12];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[3 * t + c] = on ? wt[t] * ct[c] : 0.f;
+#ifndef DENV_NO_AGGREGATION
+  const unsigned peers = __match_any_sync(0xffffffffu, on ? v0 * w + u0 : -1);
+  reduce_peers(peers, x);
+  if (!on || __ffs(peers) - 1 != (int)(threadIdx.x & 31)) return;
+#else
+  if (!on) return;
+#endif
+  const int u1 = (u0 + 1 >= w) ? 0 : u0 + 1;
+  const int v1 = min(v0 + 1, h - 1);
+  const int bin[4] = {v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) atomicAdd(&acc[3 * bin[t] + c], x[3 * t + c]);
+}
+
+// d_env == nullptr: no emitter gradient (no table, no taps).
 __global__ void shade_bwd_kernel(const float* __restrict__ env_g,
                                  const float* __restrict__ blob,
                                  const float* __restrict__ thr,
@@ -240,41 +316,94 @@ __global__ void shade_bwd_kernel(const float* __restrict__ env_g,
                                  const float* __restrict__ ct_rad,
                                  float* __restrict__ d_blob,
                                  float* __restrict__ d_thr,
-                                 float* __restrict__ d_le, int m, int h,
+                                 float* __restrict__ d_env, int m, int h,
                                  int w) {
-  extern __shared__ float env[];
-  for (int i = threadIdx.x; i < h * w * 3; i += blockDim.x) env[i] = env_g[i];
+  extern __shared__ float smem[];
+  const int n_env = h * w * 3;
+  float* env = smem;
+  float* acc = smem + n_env;  // this block's share of d_env
+  const bool want_env = d_env != nullptr;
+  for (int i = threadIdx.x; i < n_env; i += blockDim.x) {
+    env[i] = env_g[i];
+    if (want_env) acc[i] = 0.f;
+  }
   __syncthreads();
-  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < m;
-       q += gridDim.x * blockDim.x) {
-    Vertex v;
-    load_vertex(q, env, h, w, blob, thr, nrm, aux, recb, v);
-    float ct_fe[3], ct_fb[3], da[3] = {0.f, 0.f, 0.f};
-    float dr = 0.f, dm = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float gt = ct_thr[3 * q + c];
-      const float gr = ct_rad[3 * q + c];
-      const float gn = v.g_nee ? gr : 0.f;
-      const float gm = v.g_miss ? gr : 0.f;
-      // miss term ((t*w)*w_mis_b)*lm and NEE term ((t*fe)*s_nee)*le
-      const float ct_tw = gt + gm * v.lm[c] * v.w_mis_b;
-      const float ct_tfe = gn * v.le[c] * v.s_nee;
-      d_thr[3 * q + c] = ct_tw * v.w[c] + ct_tfe * v.fe.f[c];
-      ct_fb[c] = ct_tw * v.t[c] * v.wraw_ok[c];
-      ct_fe[c] = ct_tfe * v.t[c];
-      d_le[6 * q + c] = gn * (v.t[c] * v.fe.f[c] * v.s_nee);
-      d_le[6 * q + 3 + c] = gm * (v.t[c] * v.w[c] * v.w_mis_b);
+  // whole warps walk the rows together: the taps' shuffles need every lane
+  for (int q0 = blockIdx.x * blockDim.x; q0 < m;
+       q0 += gridDim.x * blockDim.x) {
+    const int q = q0 + threadIdx.x;
+    float ct_le[3] = {0.f, 0.f, 0.f}, ct_lm[3] = {0.f, 0.f, 0.f};
+    bool on_e = false, on_m = false;
+    if (q < m) {
+      Vertex v;
+      load_vertex(q, env, h, w, blob, thr, nrm, aux, recb, v);
+      float ct_fe[3], ct_fb[3], da[3] = {0.f, 0.f, 0.f};
+      float dr = 0.f, dm = 0.f;
+      for (int c = 0; c < 3; ++c) {
+        const float gt = ct_thr[3 * q + c];
+        const float gr = ct_rad[3 * q + c];
+        const float gn = v.g_nee ? gr : 0.f;
+        const float gm = v.g_miss ? gr : 0.f;
+        // miss term ((t*w)*w_mis_b)*lm and NEE term ((t*fe)*s_nee)*le
+        const float ct_tw = gt + gm * v.lm[c] * v.w_mis_b;
+        const float ct_tfe = gn * v.le[c] * v.s_nee;
+        d_thr[3 * q + c] = ct_tw * v.w[c] + ct_tfe * v.fe.f[c];
+        ct_fb[c] = ct_tw * v.t[c] * v.wraw_ok[c];
+        ct_fe[c] = ct_tfe * v.t[c];
+        ct_le[c] = gn * (v.t[c] * v.fe.f[c] * v.s_nee);
+        ct_lm[c] = gm * (v.t[c] * v.w[c] * v.w_mis_b);
+      }
+      on_e = v.g_nee;
+      on_m = v.g_miss;
+      disney_bwd(v.a, v.rough, v.metal, v.ge, v.fe, ct_fe, da, dr, dm);
+      disney_bwd(v.a, v.rough, v.metal, v.gb, v.fb, ct_fb, da, dr, dm);
+      float* o = d_blob + 5 * q;
+      o[0] = da[0];
+      o[1] = da[1];
+      o[2] = da[2];
+      o[3] = dr;
+      o[4] = dm;
     }
-    disney_bwd(v.a, v.rough, v.metal, v.ge, v.fe, ct_fe, da, dr, dm);
-    disney_bwd(v.a, v.rough, v.metal, v.gb, v.fb, ct_fb, da, dr, dm);
-    float* o = d_blob + 5 * q;
-    o[0] = da[0];
-    o[1] = da[1];
-    o[2] = da[2];
-    o[3] = dr;
-    o[4] = dm;
+    if (want_env) {
+      const __nv_bfloat16* r = recb + 13 * (q < m ? q : 0);
+      scatter_look(acc, h, w, on_e, (int)bf(r, 9), (int)bf(r, 10), bf(r, 5),
+                   bf(r, 6), ct_le);
+      scatter_look(acc, h, w, on_m, (int)bf(r, 11), (int)bf(r, 12),
+                   bf(r, 7), bf(r, 8), ct_lm);
+    }
+  }
+  if (!want_env) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_env; i += blockDim.x) {
+    const float a = acc[i];
+#ifdef DENV_PARTIALS
+    d_env[(size_t)(1 + blockIdx.x) * n_env + i] = a;
+#else
+    if (a != 0.f) atomicAdd(d_env + i, a);
+#endif
   }
 }
+
+#ifdef DENV_PARTIALS
+// d_env[i] = the sum of the blocks' tables part[b][i], b in order: 32
+// bins a block across, 8 rows of blocks summed apart, then the 8 in order.
+__global__ void denv_reduce_kernel(const float* __restrict__ part,
+                                   float* __restrict__ d_env, int blocks,
+                                   int n) {
+  __shared__ float s[8][32];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  float a = 0.f;
+  if (i < n)
+    for (int b = threadIdx.y; b < blocks; b += 8)
+      a += part[(size_t)b * n + i];
+  s[threadIdx.y][threadIdx.x] = a;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    for (int y = 1; y < 8; ++y) a += s[y][threadIdx.x];
+    d_env[i] = a;
+  }
+}
+#endif
 
 int grid_for(int m) {
   const int g = (m + kThreads - 1) / kThreads;
@@ -295,17 +424,34 @@ extern "C" int shade_bounce_fwd_launch(const float* env, const float* blob,
   return (int)cudaGetLastError();
 }
 
+// d_env: nullptr for no emitter gradient, else zeros on entry.
 extern "C" int shade_bounce_bwd_launch(const float* env, const float* blob,
                                        const float* thr, const void* nrm,
                                        const void* aux, const void* recb,
                                        const float* ct_thr,
                                        const float* ct_rad, float* d_blob,
-                                       float* d_thr, float* d_le, int m,
+                                       float* d_thr, float* d_env, int m,
                                        int h, int w, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * h * w * 3;
+  const int n_env = h * w * 3;
+  const size_t smem = sizeof(float) * n_env * (d_env != nullptr ? 2 : 1);
+  if (smem > 48 * 1024) {  // 64x64 with d_env: 96 KB, opted in
+    const cudaError_t e = cudaFuncSetAttribute(
+        shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   shade_bwd_kernel<<<grid_for(m), kThreads, smem, stream>>>(
       env, blob, thr, (const __half*)nrm, (const __nv_bfloat16*)aux,
-      (const __nv_bfloat16*)recb, ct_thr, ct_rad, d_blob, d_thr, d_le, m, h,
+      (const __nv_bfloat16*)recb, ct_thr, ct_rad, d_blob, d_thr, d_env, m, h,
       w);
+#ifdef DENV_PARTIALS
+  // d_env holds (1 + grid_for(m)) tables: the sum, then the blocks'
+  if (d_env != nullptr) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    denv_reduce_kernel<<<(n_env + 31) / 32, dim3(32, 8), 0, stream>>>(
+        d_env + n_env, d_env, grid_for(m), n_env);
+  }
+#endif
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,16 @@ package's:
     auxf  (M, 8)  bf16: wo(3), win(3), gate_nee, gate_miss
     recb  (M, 13) bf16: pdf_e, pdf_at, wi_e(3), uvf(4), uvi(4)
 
-``shade_bounce_fwd_plain`` is the plain forward (``_bounce_math``);
-``shade_bounce_bwd_explicit`` is the plain transcription of the
-hand-derived adjoint the CUDA backward computes. The envmap gradient is
-``_denv_from_dle``, a float32 ``einsum`` outside the kernels (it is
-outside the Pallas kernels in the JAX package too).
+``shade_bounce_fwd_plain`` is the plain forward (``_bounce_math``).
+Kernel B′ returns (d_blob, d_thr, d_env): on the card it sums the envmap
+gradient itself, each look's fetch cotangent into its four bilinear
+taps. Its plain version, ``shade_bounce_bwd_plain``, is the composite the
+JAX package runs: ``shade_bounce_bwd_explicit`` (the plain transcription
+of the hand-derived adjoint, which returns the fetch cotangents d_le),
+then ``_denv_from_dle``, the float32 one-hot contraction that the JAX
+package keeps outside its Pallas kernels. ``denv_taps`` is the same sum
+as four taps a look through ``index_add_`` (float64 by default), the
+checks' reference for the kernel's d_env.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from materialist_tpu_torch.ops.kernels import _lib
 
 PI = math.pi
 N_BLOB, N_NRM, N_AUX, N_REC = 5, 3, 8, 13
+SMALL_ENV_AXIS = 64  # the emitter lives in shared memory
 
 
 def _unpack(nrmf, auxf, recb):
@@ -214,6 +220,38 @@ def _denv_from_dle(envmap, recb, dle):
     return g.to(envmap.dtype)
 
 
+def denv_taps(h, w, recb, d_le, dtype=torch.float64):
+    """The envmap gradient (h, w, 3) as kernel B′ sums it, in ``dtype``:
+    each look's cotangent d_le[:, 3l:3l+3] times its four bilinear
+    weights, added to its taps through ``index_add_`` (u1 wraps at the
+    seam, v1 clamps at the pole)."""
+    uvf = recb[:, 5:9].to(dtype)
+    uvi = recb[:, 9:13].to(torch.int64)
+    out = torch.zeros((h * w, 3), dtype=dtype, device=d_le.device)
+    for look in range(2):
+        u0, v0 = uvi[:, 2 * look], uvi[:, 2 * look + 1]
+        u1 = torch.where(u0 + 1 >= w, 0, u0 + 1)
+        v1 = torch.clamp_max(v0 + 1, h - 1)
+        du = uvf[:, 2 * look, None]
+        dv = uvf[:, 2 * look + 1, None]
+        ct = d_le[:, 3 * look:3 * look + 3].to(dtype)
+        for v, u, wt in ((v0, u0, (1 - du) * (1 - dv)),
+                         (v0, u1, du * (1 - dv)), (v1, u0, (1 - du) * dv),
+                         (v1, u1, du * dv)):
+            out.index_add_(0, v * w + u, wt * ct)
+    return out.reshape(h, w, 3)
+
+
+def shade_bounce_bwd_plain(env, blob, thr, nrmf, auxf, recb, ct_thr,
+                           ct_rad, env_grad=True):
+    """Plain version of kernel B′: (d_blob (M, 5), d_thr (M, 3), d_env
+    (H, W, 3), or None without ``env_grad``)."""
+    d_blob, d_thr, d_le = shade_bounce_bwd_explicit(
+        env, blob, thr, nrmf, auxf, recb, ct_thr, ct_rad)
+    return d_blob, d_thr, (_denv_from_dle(env, recb, d_le) if env_grad
+                           else None)
+
+
 # -------------------------------------------------------------- kernels
 
 def _check_inputs(env, blob, thr, nrmf, auxf, recb):
@@ -226,6 +264,9 @@ def _check_inputs(env, blob, thr, nrmf, auxf, recb):
     _lib.expect(nrmf, "nrmf", torch.float16, (m, N_NRM), dev)
     _lib.expect(auxf, "auxf", torch.bfloat16, (m, N_AUX), dev)
     _lib.expect(recb, "recb", torch.bfloat16, (m, N_REC), dev)
+    if h > SMALL_ENV_AXIS or w > SMALL_ENV_AXIS:
+        raise ValueError(f"env: {h}x{w}, the kernels take at most "
+                         f"{SMALL_ENV_AXIS}x{SMALL_ENV_AXIS}")
     return m, h, w
 
 
@@ -246,27 +287,31 @@ def shade_bounce_fwd(env, blob, thr, nrmf, auxf, recb):
     return thr_out, rad
 
 
-def shade_bounce_bwd(env, blob, thr, nrmf, auxf, recb, ct_thr, ct_rad):
-    """Kernel B′ on CUDA tensors (explicit plain adjoint on CPU)."""
+def shade_bounce_bwd(env, blob, thr, nrmf, auxf, recb, ct_thr, ct_rad,
+                     env_grad=True):
+    """Kernel B′ on CUDA tensors (its plain version on CPU tensors):
+    (d_blob (M, 5), d_thr (M, 3), d_env (H, W, 3), or None without
+    ``env_grad``)."""
     if blob.device.type == "cpu":
-        return shade_bounce_bwd_explicit(env, blob, thr, nrmf, auxf, recb,
-                                         ct_thr, ct_rad)
+        return shade_bounce_bwd_plain(env, blob, thr, nrmf, auxf, recb,
+                                      ct_thr, ct_rad, env_grad)
     m, h, w = _check_inputs(env, blob, thr, nrmf, auxf, recb)
     _lib.expect(ct_thr, "ct_thr", torch.float32, (m, 3), blob.device)
     _lib.expect(ct_rad, "ct_rad", torch.float32, (m, 3), blob.device)
     dev = blob.device
     d_blob = torch.empty((m, N_BLOB), dtype=torch.float32, device=dev)
     d_thr = torch.empty((m, 3), dtype=torch.float32, device=dev)
-    d_le = torch.empty((m, 6), dtype=torch.float32, device=dev)
+    d_env = (torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+             if env_grad else None)
     if m:
         _lib.check(_lib.lib().shade_bounce_bwd_launch(
             env.data_ptr(), blob.data_ptr(), thr.data_ptr(), nrmf.data_ptr(),
             auxf.data_ptr(), recb.data_ptr(), ct_thr.data_ptr(),
             ct_rad.data_ptr(), d_blob.data_ptr(), d_thr.data_ptr(),
-            d_le.data_ptr(), m, h, w, _lib.stream_ptr(blob)),
-            "shade_bounce_bwd")
+            None if d_env is None else d_env.data_ptr(), m, h, w,
+            _lib.stream_ptr(blob)), "shade_bounce_bwd")
         _lib.count_launch("shade_bounce_bwd", (m, h, w))
-    return d_blob, d_thr, d_le
+    return d_blob, d_thr, d_env
 
 
 class _BounceOp(torch.autograd.Function):
@@ -281,10 +326,10 @@ class _BounceOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_thr, ct_rad):
         envmap, blob, thr, nrmf, auxf, recb = ctx.saved_tensors
-        d_blob, d_thr, d_le = shade_bounce_bwd(
-            envmap, blob, thr, nrmf, auxf, recb,
-            ct_thr.contiguous(), ct_rad.contiguous())
-        d_env = _denv_from_dle(envmap, recb, d_le)
+        # no envmap gradient where nothing wants one (the material phases)
+        d_blob, d_thr, d_env = shade_bounce_bwd(
+            envmap, blob, thr, nrmf, auxf, recb, ct_thr.contiguous(),
+            ct_rad.contiguous(), env_grad=ctx.needs_input_grad[0])
         return d_env, d_blob, d_thr, None, None, None
 
 

@@ -140,8 +140,9 @@ def test_shade_bounce_and_scatter(card, scene):
                     sb.shade_bounce_fwd_plain(*args)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
     ct = [torch.randn((m, 3), device=card) for _ in range(2)]
+    # d_blob, d_thr and d_env against the plain composite
     for a, b in zip(sb.shade_bounce_bwd(*args, *ct),
-                    sb.shade_bounce_bwd_explicit(*args, *ct)):
+                    sb.shade_bounce_bwd_plain(*args, *ct)):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
     idx = r0.idx.reshape(m).int().contiguous()
@@ -152,6 +153,72 @@ def test_shade_bounce_and_scatter(card, scene):
                                          exact=exact)
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
+
+
+def _bounce_records(card, m, h, w, seed):
+    """Seeded bounce inputs of m rows at an h×w envmap: the seam, the
+    pole, 4,096 rows that tap the same bins in both looks, ~30% of each
+    look gated off."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(n):
+        v = torch.randn((n, 3), generator=g)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    nrm, wo = unit(m), unit(m)
+    wo = torch.where((wo * nrm).sum(-1, keepdim=True) < 0, -wo, wo)
+    aux = torch.cat([wo, unit(m), (torch.rand((m, 2), generator=g)
+                                   > 0.3).float()], -1)
+    uvi = torch.stack([torch.randint(0, w, (m,), generator=g),
+                       torch.randint(0, h, (m,), generator=g)] * 2, -1)
+    uvi[:1000, 0::2] = w - 1
+    uvi[1000:2000, 1::2] = h - 1
+    uvi[2000:6096, 0::2] = w // 3
+    uvi[2000:6096, 1::2] = h // 2
+    recb = torch.cat([torch.rand((m, 2), generator=g) * 3 + 0.05, unit(m),
+                      torch.rand((m, 4), generator=g), uvi.float()], -1)
+    blob = torch.cat([torch.rand((m, 3), generator=g) * 0.9 + 0.05,
+                      torch.rand((m, 1), generator=g) * 0.9 + 0.1,
+                      torch.rand((m, 1), generator=g)], -1)
+    env = torch.rand((h, w, 3), generator=g) * 2 + 0.1
+    args = (env.to(card), blob.to(card),
+            (torch.rand((m, 3), generator=g) + 0.1).to(card),
+            nrm.to(torch.float16).to(card), aux.to(torch.bfloat16).to(card),
+            recb.to(torch.bfloat16).to(card))
+    return args, [torch.randn((m, 3), generator=g).to(card)
+                  for _ in range(2)]
+
+
+@pytest.mark.parametrize("h,w", [(16, 32), (64, 64)])
+def test_bounce_bwd_sums_the_envmap_gradient(card, monkeypatch, h, w):
+    """B′ on 600,001 rows (more than one pass of its 2,112 blocks): d_blob
+    and d_thr against the plain version, d_env against the float64 sum of
+    the same taps (the atomics' order varies, so 1e-5 of the largest bin)
+    and the float32 contraction; no d_env without env_grad; and the
+    bounce's backward on the card never builds the contraction."""
+    args, ct = _bounce_records(card, 600001, h, w, 6)
+    d_blob, d_thr, d_env = sb.shade_bounce_bwd(*args, *ct)
+    p_blob, p_thr, d_le = sb.shade_bounce_bwd_explicit(*args, *ct)
+    for a, b in ((d_blob, p_blob), (d_thr, p_thr)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+    ref = sb.denv_taps(h, w, args[5], d_le)
+    torch.testing.assert_close(d_env.double(), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(d_env, sb._denv_from_dle(args[0], args[5],
+                                                        d_le),
+                               rtol=0, atol=1e-5 * float(ref.abs().max()))
+    n_blob, _, none = sb.shade_bounce_bwd(*args, *ct, env_grad=False)
+    assert none is None and torch.equal(n_blob, d_blob)
+
+    def no_contraction(*a):
+        raise AssertionError("the one-hot contraction ran on the card")
+    monkeypatch.setattr(sb, "_denv_from_dle", no_contraction)
+    env = args[0].clone().requires_grad_()
+    out = sb.shade_bounce_fused(env, *args[1:])
+    torch.autograd.backward(out, ct)
+    torch.testing.assert_close(env.grad.double(), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
 
 def test_env_kernels(card, scene):
     _, gb, _, env = scene

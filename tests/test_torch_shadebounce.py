@@ -127,3 +127,87 @@ def test_explicit_adjoint_matches_autograd(seed):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-6 * float(b.abs().max()),
                                    err_msg=name)
+
+
+def _tap_records(seed, h, w):
+    """Seeded records at an h×w envmap whose fetch coords include the seam
+    (u0 = w−1), the pole (v0 = h−1), both at once, and 96 rows that all
+    tap the same bins; about 30% of each look is gated off."""
+    r = _records(seed, h=h, w=w)
+    rec = r["recb"].reshape(-1, 13).to(torch.float32)
+    rng = np.random.default_rng(seed + 100)
+    for look in range(2):
+        iu, iv = 9 + 2 * look, 10 + 2 * look
+        rec[0:40, iu] = w - 1
+        rec[40:80, iv] = h - 1
+        rec[80:120, iu] = w - 1
+        rec[80:120, iv] = h - 1
+        rec[120:216, iu] = int(rng.integers(0, w))
+        rec[120:216, iv] = int(rng.integers(0, h))
+    r["recb"] = rec.to(torch.bfloat16).reshape(r["recb"].shape)
+    return r
+
+
+@pytest.mark.parametrize("h,w", [(16, 32), (8, 8), (64, 64)])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tap_scatter_matches_jax_denv(seed, h, w):
+    """The sum kernel B′ implements (denv_taps: eight weighted taps a row
+    through index_add_, float64) against the JAX package's one-hot
+    contraction _denv_from_dle (float32 on the CPU) on the same fetch
+    cotangents: the explicit adjoint's d_le, zero on gated-off looks.
+    Tolerance: 2e-6 of the largest bin, about 20× the float32 rounding of
+    these sums (their distance from float64 stays under 1e-7)."""
+    r = _tap_records(seed, h, w)
+    m = r["blob"].shape[0] * r["blob"].shape[1]
+    recb = r["recb"].reshape(m, 13)
+    aux = r["aux"].reshape(m, 8).to(torch.float32)
+    assert (recb[:, 9].float() == w - 1).any() and (
+        recb[:, 10].float() == h - 1).any()
+    assert (aux[:, 6] == 0).any() and (aux[:, 7] == 0).any()
+    _, _, d_le = tsb.shade_bounce_bwd_explicit(
+        torch.from_numpy(r["env"]), torch.from_numpy(r["blob"].reshape(m, 5)),
+        torch.from_numpy(r["thr"].reshape(m, 3)), r["nrmf"].reshape(m, 3),
+        r["aux"].reshape(m, 8), recb,
+        *[torch.from_numpy(c.reshape(m, 3)) for c in r["ct"]])
+    assert float(d_le[aux[:, 6] == 0, 0:3].abs().max()) == 0.0
+    assert float(d_le[aux[:, 7] == 0, 3:6].abs().max()) == 0.0
+    got = tsb.denv_taps(h, w, recb, d_le).numpy()
+    ref = np.asarray(jsb._denv_from_dle(
+        jnp.asarray(r["env"]), _jnp(recb), jnp.asarray(d_le.numpy())))
+    assert got.shape == ref.shape == (h, w, 3)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=2e-6 * np.abs(got).max())
+
+
+def test_bounce_bwd_on_cpu_is_its_plain_version(monkeypatch):
+    """On CPU tensors B′'s wrapper returns the plain composite's d_env,
+    _denv_from_dle of the explicit d_le, bit for bit; without an envmap
+    gradient it returns None, and the bounce's backward does not build
+    the contraction when the envmap needs no gradient."""
+    r = _tap_records(5, 16, 32)
+    m = r["blob"].shape[0] * r["blob"].shape[1]
+    env = torch.from_numpy(r["env"])
+    blob = torch.from_numpy(r["blob"].reshape(m, 5))
+    thr = torch.from_numpy(r["thr"].reshape(m, 3))
+    det = (r["nrmf"].reshape(m, 3), r["aux"].reshape(m, 8),
+           r["recb"].reshape(m, 13))
+    ct = [torch.from_numpy(c.reshape(m, 3)) for c in r["ct"]]
+    d_blob, d_thr, d_env = tsb.shade_bounce_bwd(env, blob, thr, *det, *ct)
+    e_blob, e_thr, d_le = tsb.shade_bounce_bwd_explicit(env, blob, thr,
+                                                        *det, *ct)
+    assert torch.equal(d_blob, e_blob) and torch.equal(d_thr, e_thr)
+    assert torch.equal(d_env, tsb._denv_from_dle(env, det[2], d_le))
+    n_blob, n_thr, none = tsb.shade_bounce_bwd(env, blob, thr, *det, *ct,
+                                               env_grad=False)
+    assert none is None
+    assert torch.equal(n_blob, e_blob) and torch.equal(n_thr, e_thr)
+
+    def no_contraction(*a):
+        raise AssertionError("_denv_from_dle called without an envmap "
+                             "gradient")
+    monkeypatch.setattr(tsb, "_denv_from_dle", no_contraction)
+    blob_l = blob.clone().requires_grad_()
+    out = tsb.shade_bounce_fused(env, blob_l, thr, *det)
+    torch.autograd.backward(out, ct)
+    assert env.grad is None
+    torch.testing.assert_close(blob_l.grad, e_blob, rtol=0, atol=0)
