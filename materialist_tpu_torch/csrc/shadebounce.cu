@@ -54,6 +54,9 @@ namespace {
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// a table per warp where the emitter and the tables take at most this
+constexpr int kPerWarpSmem = 100 * 1024;
 
 __device__ __forceinline__ float bf(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
@@ -275,12 +278,13 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, float (&x)[N]) {
   }
 }
 
-// Adds one look's fetch cotangent ct[3] to its 4 bilinear taps in the
-// block's table acc (the taps of lookup4). A lane with on == false adds
-// nothing. Every lane of the warp calls it.
-__device__ __forceinline__ void scatter_look(float* acc, int h, int w,
-                                             bool on, int u0, int v0,
-                                             float du, float dv,
+// Adds one look's fetch cotangent ct[3] to its 4 bilinear taps (those of
+// lookup4) in tbl. A lane with on == false adds nothing. Every lane of the
+// warp calls it. per_warp: tbl is this warp's own table, added to without
+// atomics; else the block's, added to with shared atomics.
+__device__ __forceinline__ void scatter_look(float* tbl, bool per_warp,
+                                             int h, int w, bool on, int u0,
+                                             int v0, float du, float dv,
                                              const float ct[3]) {
   const float wt[4] = {(1.f - du) * (1.f - dv), du * (1.f - dv),
                        (1.f - du) * dv, du * dv};
@@ -292,21 +296,56 @@ __device__ __forceinline__ void scatter_look(float* acc, int h, int w,
 #ifndef DENV_NO_AGGREGATION
   const unsigned peers = __match_any_sync(0xffffffffu, on ? v0 * w + u0 : -1);
   reduce_peers(peers, x);
-  if (!on || __ffs(peers) - 1 != (int)(threadIdx.x & 31)) return;
+  const bool lead = on && __ffs(peers) - 1 == (int)(threadIdx.x & 31);
 #else
-  if (!on) return;
+  const bool lead = on;
+#endif
+#ifdef DENV_NO_ADDS
+  return;
 #endif
   const int u1 = (u0 + 1 >= w) ? 0 : u0 + 1;
   const int v1 = min(v0 + 1, h - 1);
   const int bin[4] = {v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1};
+  if (per_warp) {
+    // The leaders' base taps differ, and so do their bins of each tap:
+    // u1 and v1 follow u0 and v0 one to one, but at the pole, where both
+    // v taps land on v0's bins. Fold those into the v0 taps first; then
+    // one tap at a time, a plain add, and the warp syncs before the next.
+    const bool pole = v1 == v0;
+    if (pole)
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+      for (int c = 0; c < 6; ++c) x[c] += x[6 + c];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) atomicAdd(&acc[3 * bin[t] + c], x[3 * t + c]);
+    for (int t = 0; t < 4; ++t) {
+      if (lead && (t < 2 || !pole)) {
+#ifdef DENV_SCALAR_ADDS
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tbl[4 * bin[t] + c] += x[3 * t + c];
+#else
+        float4* p = reinterpret_cast<float4*>(tbl) + bin[t];
+        float4 a = *p;
+        a.x += x[3 * t];
+        a.y += x[3 * t + 1];
+        a.z += x[3 * t + 2];
+        *p = a;
+#endif
+      }
+      __syncwarp();
+    }
+  } else if (lead) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) atomicAdd(&tbl[4 * bin[t] + c], x[3 * t + c]);
+  }
 }
 
 // d_env == nullptr: no emitter gradient (no table, no taps).
-__global__ void shade_bwd_kernel(const float* __restrict__ env_g,
+__global__ void
+#ifdef BWD_MIN_BLOCKS
+__launch_bounds__(kThreads, BWD_MIN_BLOCKS)
+#endif
+shade_bwd_kernel(const float* __restrict__ env_g,
                                  const float* __restrict__ blob,
                                  const float* __restrict__ thr,
                                  const __half* __restrict__ nrm,
@@ -317,16 +356,20 @@ __global__ void shade_bwd_kernel(const float* __restrict__ env_g,
                                  float* __restrict__ d_blob,
                                  float* __restrict__ d_thr,
                                  float* __restrict__ d_env, int m, int h,
-                                 int w) {
-  extern __shared__ float smem[];
-  const int n_env = h * w * 3;
-  float* env = smem;
-  float* acc = smem + n_env;  // this block's share of d_env
+                                 int w, bool per_warp) {
+  extern __shared__ float4 smem4[];
+  const int n_bins = h * w, n_env = n_bins * 3;
+  // this block's share of d_env, 4 floats a bin (rgb and a pad, so that a
+  // bin is one 16-byte access): a table per warp, or one for the block;
+  // then the emitter
+  float* tbl = reinterpret_cast<float*>(smem4);
   const bool want_env = d_env != nullptr;
-  for (int i = threadIdx.x; i < n_env; i += blockDim.x) {
-    env[i] = env_g[i];
-    if (want_env) acc[i] = 0.f;
-  }
+  const int n_tbl = want_env ? (per_warp ? kWarps : 1) : 0;
+  float* env = tbl + 4 * n_bins * n_tbl;
+  for (int i = threadIdx.x; i < n_env; i += blockDim.x) env[i] = env_g[i];
+  for (int i = threadIdx.x; i < n_bins * n_tbl; i += blockDim.x)
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* own = tbl + (per_warp ? (threadIdx.x >> 5) * 4 * n_bins : 0);
   __syncthreads();
   // whole warps walk the rows together: the taps' shuffles need every lane
   for (int q0 = blockIdx.x * blockDim.x; q0 < m;
@@ -366,44 +409,21 @@ __global__ void shade_bwd_kernel(const float* __restrict__ env_g,
     }
     if (want_env) {
       const __nv_bfloat16* r = recb + 13 * (q < m ? q : 0);
-      scatter_look(acc, h, w, on_e, (int)bf(r, 9), (int)bf(r, 10), bf(r, 5),
-                   bf(r, 6), ct_le);
-      scatter_look(acc, h, w, on_m, (int)bf(r, 11), (int)bf(r, 12),
-                   bf(r, 7), bf(r, 8), ct_lm);
+      scatter_look(own, per_warp, h, w, on_e, (int)bf(r, 9), (int)bf(r, 10),
+                   bf(r, 5), bf(r, 6), ct_le);
+      scatter_look(own, per_warp, h, w, on_m, (int)bf(r, 11),
+                   (int)bf(r, 12), bf(r, 7), bf(r, 8), ct_lm);
     }
   }
   if (!want_env) return;
   __syncthreads();
   for (int i = threadIdx.x; i < n_env; i += blockDim.x) {
-    const float a = acc[i];
-#ifdef DENV_PARTIALS
-    d_env[(size_t)(1 + blockIdx.x) * n_env + i] = a;
-#else
+    const int j = 4 * (i / 3) + i % 3;
+    float a = tbl[j];
+    for (int k = 1; k < n_tbl; ++k) a += tbl[k * 4 * n_bins + j];
     if (a != 0.f) atomicAdd(d_env + i, a);
-#endif
   }
 }
-
-#ifdef DENV_PARTIALS
-// d_env[i] = the sum of the blocks' tables part[b][i], b in order: 32
-// bins a block across, 8 rows of blocks summed apart, then the 8 in order.
-__global__ void denv_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ d_env, int blocks,
-                                   int n) {
-  __shared__ float s[8][32];
-  const int i = blockIdx.x * 32 + threadIdx.x;
-  float a = 0.f;
-  if (i < n)
-    for (int b = threadIdx.y; b < blocks; b += 8)
-      a += part[(size_t)b * n + i];
-  s[threadIdx.y][threadIdx.x] = a;
-  __syncthreads();
-  if (threadIdx.y == 0 && i < n) {
-    for (int y = 1; y < 8; ++y) a += s[y][threadIdx.x];
-    d_env[i] = a;
-  }
-}
-#endif
 
 int grid_for(int m) {
   const int g = (m + kThreads - 1) / kThreads;
@@ -432,26 +452,39 @@ extern "C" int shade_bounce_bwd_launch(const float* env, const float* blob,
                                        const float* ct_rad, float* d_blob,
                                        float* d_thr, float* d_env, int m,
                                        int h, int w, cudaStream_t stream) {
-  const int n_env = h * w * 3;
-  const size_t smem = sizeof(float) * n_env * (d_env != nullptr ? 2 : 1);
-  if (smem > 48 * 1024) {  // 64x64 with d_env: 96 KB, opted in
+  const size_t table = sizeof(float4) * h * w;
+#if defined(DENV_BLOCK_TABLE) || defined(DENV_NO_AGGREGATION)
+  const bool per_warp = false;
+#else
+  const bool per_warp =
+      d_env != nullptr && kWarps * table + 3 * h * w * 4 <= kPerWarpSmem;
+#endif
+  const size_t smem = sizeof(float) * h * w * 3 +
+                      (d_env == nullptr ? 0 : (per_warp ? kWarps : 1) * table);
+  if (smem > 48 * 1024) {  // beyond the default: opt in
     const cudaError_t e = cudaFuncSetAttribute(
         shade_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  shade_bwd_kernel<<<grid_for(m), kThreads, smem, stream>>>(
+  int blocks = grid_for(m);
+  if (d_env != nullptr) {
+    // one wave of resident blocks: each block zeroes and flushes its
+    // tables once, so the fewer the blocks the less of that
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, shade_bwd_kernel, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int wave = per_sm * sms > 0 ? per_sm * sms : 1;
+    if (blocks > wave) blocks = wave;
+  }
+  shade_bwd_kernel<<<blocks, kThreads, smem, stream>>>(
       env, blob, thr, (const __half*)nrm, (const __nv_bfloat16*)aux,
       (const __nv_bfloat16*)recb, ct_thr, ct_rad, d_blob, d_thr, d_env, m, h,
-      w);
-#ifdef DENV_PARTIALS
-  // d_env holds (1 + grid_for(m)) tables: the sum, then the blocks'
-  if (d_env != nullptr) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    denv_reduce_kernel<<<(n_env + 31) / 32, dim3(32, 8), 0, stream>>>(
-        d_env + n_env, d_env, grid_for(m), n_env);
-  }
-#endif
+      w, per_warp);
   return (int)cudaGetLastError();
 }

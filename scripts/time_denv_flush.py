@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
 """Kernel B′'s ways to sum the envmap gradient, timed in turns on the card.
 
-Three builds of ``materialist_tpu_torch/csrc/shadebounce.cu``:
+Builds of ``materialist_tpu_torch/csrc/shadebounce.cu``, each its own
+library:
 
-- ``atomic`` (the default build): lanes that share a look's base tap are
-  summed by shuffles, the group's lowest lane adds into the block's table
-  in shared memory, and each block adds its nonzero bins into d_env with
-  global float atomics;
-- ``partials`` (``-DDENV_PARTIALS``): each block writes its whole table
-  to a (blocks, H·W·3) buffer and a second kernel sums them in a fixed
-  order;
+- ``per_warp`` (the default build): lanes that share a look's base tap
+  are summed by shuffles, and the group's lowest lane adds the sums into
+  its warp's own table in shared memory, without atomics (a table per
+  warp where they fit); each block adds its nonzero bins into d_env with
+  global float atomics at its end;
+- ``block_table`` (``-DDENV_BLOCK_TABLE``): the same, into one table for
+  the block with shared-memory float atomics;
 - ``no_aggregation`` (``-DDENV_NO_AGGREGATION``): every lane adds its own
-  taps into shared memory, atomics as in ``atomic``.
+  taps into the block's table with shared atomics;
+- ``no_adds`` (``-DDENV_NO_ADDS``): the grouping and shuffles without the
+  adds: what the adds cost, by difference (its d_env is zero);
+- ``scalar_adds`` (``-DDENV_SCALAR_ADDS``): ``per_warp`` with three
+  4-byte adds a tap where the default makes one 16-byte one;
+- ``min_blocks_3`` (``-DBWD_MIN_BLOCKS=3``): ``per_warp`` with the
+  registers cut so that three blocks fit on an SM.
 
-Beside them: B′ without d_env, and the backward that B′ replaced (B′
+Each build with d_env launches one wave of resident blocks.
+
+Beside them: B′ without d_env (``NO_ENV``'s builds), and the backward
+that B′ replaced (B′
 without d_env, then the one-hot contraction ``_denv_from_dle`` on the
 explicit d_le). Inputs are the bounces of recorded trace chunks
 (``chip_smoke.capture_trace``): photo_e2e at 512² at the main path's caps
@@ -42,12 +52,17 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = {"atomic": None, "partials": "-DDENV_PARTIALS",
-            "no_aggregation": "-DDENV_NO_AGGREGATION"}
+VARIANTS = {"per_warp": None, "block_table": "-DDENV_BLOCK_TABLE",
+            "no_aggregation": "-DDENV_NO_AGGREGATION",
+            "no_adds": "-DDENV_NO_ADDS",
+            "scalar_adds": "-DDENV_SCALAR_ADDS",
+            "min_blocks_3": "-DBWD_MIN_BLOCKS=3"}
+# the builds also timed without d_env
+NO_ENV = ("per_warp", "min_blocks_3")
 
 
 def build_variants(_lib):
-    """The two variant builds, each its own library beside the default."""
+    """The variant builds, each its own library beside the default."""
     out, procs = {}, []
     for name, flag in VARIANTS.items():
         if flag is None:
@@ -66,7 +81,7 @@ def build_variants(_lib):
             _lib._SIGNATURES["shade_bounce_bwd_launch"]
         lib.shade_bounce_bwd_launch.restype = ctypes.c_int
         out[name] = lib
-    out["atomic"] = _lib.lib()
+    out["per_warp"] = _lib.lib()
     return out
 
 
@@ -91,17 +106,16 @@ def main():
     libs = build_variants(_lib)
     caps = tuple(float(x) for x in args.caps.split(","))
 
-    def launch(lib, a, ct, blocks):
+    def launch(lib, a, ct, env_grad=True):
         m, (h, w) = a[1].shape[0], a[0].shape[:2]
-        n_env = h * w * 3
         d_blob = torch.empty((m, 5), dtype=torch.float32, device=dev)
         d_thr = torch.empty((m, 3), dtype=torch.float32, device=dev)
-        d_env = torch.zeros(n_env * (1 + blocks), dtype=torch.float32,
-                            device=dev)
+        d_env = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
         _lib.check(lib.shade_bounce_bwd_launch(
-            *[t.data_ptr() for t in (*a, *ct, d_blob, d_thr, d_env)], m, h,
-            w, _lib.stream_ptr(d_env)), "shade_bounce_bwd")
-        return d_env[:n_env].reshape(h, w, 3)
+            *[t.data_ptr() for t in (*a, *ct, d_blob, d_thr)],
+            d_env.data_ptr() if env_grad else None, m, h, w,
+            _lib.stream_ptr(d_env)), "shade_bounce_bwd")
+        return d_env
 
     def case(tag, a):
         m, (h, w) = a[1].shape[0], a[0].shape[:2]
@@ -109,12 +123,11 @@ def main():
         ct = [torch.randn((m, 3), generator=g, device=dev) for _ in range(2)]
         d_le = sb.shade_bounce_bwd_explicit(*a, *ct)[2]
         ref = sb.denv_taps(h, w, a[5], d_le)
-        grid = min(max((m + 255) // 256, 1), 2112)
-        runs = {name: (lambda lib=lib, name=name: launch(
-            lib, a, ct, grid if name == "partials" else 0))
-            for name, lib in libs.items()}
-        runs["no d_env"] = lambda: sb.shade_bounce_bwd(*a, *ct,
-                                                       env_grad=False)
+        runs = {name: (lambda lib=lib: launch(lib, a, ct))
+                for name, lib in libs.items()}
+        for name in NO_ENV:
+            runs[f"{name}, no d_env"] = (
+                lambda lib=libs[name]: launch(lib, a, ct, False))
         runs["replaced"] = lambda: (
             sb.shade_bounce_bwd(*a, *ct, env_grad=False),
             sb._denv_from_dle(a[0], a[5], d_le))
