@@ -30,19 +30,26 @@
 // scatter was VPU-bound there. That contraction has 1,536 output bins
 // (16x32x3), a contraction length of M and no reuse of either operand:
 // on this card it is bound by the bytes of its one-hot planes, far from
-// the tensor cores. Here each look's cotangent goes to its 4 bilinear
-// taps (u wraps at the seam, v clamps at the pole: both v taps of a pole
-// row land on one bin) in a per-block table in shared memory beside the
-// emitter copy, and each block adds its nonzero bins into d_env with
-// global float atomics at its end: d_le never reaches device memory.
-// Gated-off looks add nothing. NEE directions crowd onto the sampler's
-// bright texels and escaped rays of one warp see nearly the same sky, so
-// many lanes of a warp hit one bin: the lanes that share a look's base tap
-// are grouped with __match_any_sync and their 12 tap values summed by
-// shuffles in log2(group) steps, and only the group's lowest lane adds them
-// into shared memory. The atomics add in an order that changes from run to
-// run, so d_env's last bits do too, as the step's already do through C'
-// (csrc/rowops.cu).
+// the tensor cores. Here each look's cotangent goes to its 4 bilinear taps
+// (u wraps at the seam, v clamps at the pole: both v taps of a pole row
+// land on one bin) in a table in shared memory beside the emitter copy,
+// and each block adds its nonzero bins into d_env with global float
+// atomics at its end: d_le never reaches device memory, and gated-off
+// looks add nothing. NEE directions crowd onto the sampler's bright
+// texels and escaped rays of one warp see nearly the same sky, so many
+// lanes of a warp hit one bin: the lanes that share a look's base tap are
+// grouped with __match_any_sync and their 12 tap values summed by
+// shuffles in log2(group) steps, and only the group's lowest lane adds.
+// Float atomics on shared memory are compare-and-swap loops on sm_90a,
+// so each warp adds into a table of its own, without atomics (a bin is
+// 4 floats, one 16-byte access); the block's tables are summed at the
+// flush. With d_env the launch is one wave of resident blocks, three to
+// an SM, so each block zeroes and flushes its tables once. An emitter of
+// more than 548 texels (16x32 has 512; the kernels take up to 64x64),
+// whose 8 tables would not leave room for 3 blocks, keeps one table for
+// the block, added to with shared atomics. The global atomics add the
+// blocks in an order that changes from run to run, so d_env's last bits
+// do too, as the step's already do through C' (csrc/rowops.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -55,8 +62,13 @@ constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// a table per warp where the emitter and the tables take at most this
-constexpr int kPerWarpSmem = 100 * 1024;
+// blocks of B' on an SM: the register cap this sets (80 a thread where
+// it would take 96, a few bytes spilled) makes it faster, with d_env or
+// without
+constexpr int kBwdBlocksPerSm = 3;
+// a table per warp where the emitter and the tables leave room for
+// kBwdBlocksPerSm blocks on an SM
+constexpr int kPerWarpSmem = 75 * 1024;
 
 __device__ __forceinline__ float bf(const __nv_bfloat16* p, int i) {
   return __bfloat162float(p[i]);
@@ -293,16 +305,9 @@ __device__ __forceinline__ void scatter_look(float* tbl, bool per_warp,
   for (int t = 0; t < 4; ++t)
 #pragma unroll
     for (int c = 0; c < 3; ++c) x[3 * t + c] = on ? wt[t] * ct[c] : 0.f;
-#ifndef DENV_NO_AGGREGATION
   const unsigned peers = __match_any_sync(0xffffffffu, on ? v0 * w + u0 : -1);
   reduce_peers(peers, x);
   const bool lead = on && __ffs(peers) - 1 == (int)(threadIdx.x & 31);
-#else
-  const bool lead = on;
-#endif
-#ifdef DENV_NO_ADDS
-  return;
-#endif
   const int u1 = (u0 + 1 >= w) ? 0 : u0 + 1;
   const int v1 = min(v0 + 1, h - 1);
   const int bin[4] = {v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1};
@@ -318,17 +323,12 @@ __device__ __forceinline__ void scatter_look(float* tbl, bool per_warp,
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       if (lead && (t < 2 || !pole)) {
-#ifdef DENV_SCALAR_ADDS
-#pragma unroll
-        for (int c = 0; c < 3; ++c) tbl[4 * bin[t] + c] += x[3 * t + c];
-#else
         float4* p = reinterpret_cast<float4*>(tbl) + bin[t];
         float4 a = *p;
         a.x += x[3 * t];
         a.y += x[3 * t + 1];
         a.z += x[3 * t + 2];
         *p = a;
-#endif
       }
       __syncwarp();
     }
@@ -341,10 +341,7 @@ __device__ __forceinline__ void scatter_look(float* tbl, bool per_warp,
 }
 
 // d_env == nullptr: no emitter gradient (no table, no taps).
-__global__ void
-#ifdef BWD_MIN_BLOCKS
-__launch_bounds__(kThreads, BWD_MIN_BLOCKS)
-#endif
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 shade_bwd_kernel(const float* __restrict__ env_g,
                                  const float* __restrict__ blob,
                                  const float* __restrict__ thr,
@@ -453,12 +450,8 @@ extern "C" int shade_bounce_bwd_launch(const float* env, const float* blob,
                                        float* d_thr, float* d_env, int m,
                                        int h, int w, cudaStream_t stream) {
   const size_t table = sizeof(float4) * h * w;
-#if defined(DENV_BLOCK_TABLE) || defined(DENV_NO_AGGREGATION)
-  const bool per_warp = false;
-#else
   const bool per_warp =
       d_env != nullptr && kWarps * table + 3 * h * w * 4 <= kPerWarpSmem;
-#endif
   const size_t smem = sizeof(float) * h * w * 3 +
                       (d_env == nullptr ? 0 : (per_warp ? kWarps : 1) * table);
   if (smem > 48 * 1024) {  // beyond the default: opt in
@@ -470,7 +463,7 @@ extern "C" int shade_bounce_bwd_launch(const float* env, const float* blob,
   int blocks = grid_for(m);
   if (d_env != nullptr) {
     // one wave of resident blocks: each block zeroes and flushes its
-    // tables once, so the fewer the blocks the less of that
+    // tables once
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)

@@ -173,8 +173,10 @@ def _disney_bwd(a, rough, metal, geo, o, ct):
 
 def shade_bounce_bwd_explicit(env, blob, thr, nrmf, auxf, recb, ct_thr,
                               ct_rad):
-    """Plain transcription of kernel B′: (d_blob (M, 5), d_thr (M, 3),
-    d_le (M, 6)) for output cotangents ct_thr, ct_rad (M, 3)."""
+    """Plain transcription of kernel B′'s adjoint: (d_blob (M, 5), d_thr
+    (M, 3), d_le (M, 6)) for output cotangents ct_thr, ct_rad (M, 3);
+    d_le holds the two fetches' cotangents, which the kernel sums into
+    d_env itself."""
     det = _unpack(nrmf, auxf, recb)
     v = _vertex(env, blob, thr, det)
     gn = torch.where(det["g_nee"][:, None], ct_rad, 0.0)

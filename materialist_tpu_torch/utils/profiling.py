@@ -73,7 +73,8 @@ def device_summary(prof, wall_ms: float) -> dict:
     (the sum over every kernel), its share of ``wall_ms``, the device
     operations, the ms and launches of the port's own kernels (those of
     ``_lib.kernel_names``), the ten kernels that take the most device
-    time and the ten ``aten`` operators whose own kernels do."""
+    time, and every ``aten`` operator whose own kernels ran, by their
+    device time (``ops``)."""
     from materialist_tpu_torch.ops.kernels import _lib
     names = _lib.kernel_names()
     ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
@@ -83,13 +84,14 @@ def device_summary(prof, wall_ms: float) -> dict:
             and any(k in e.key for k in names)]
     top = sorted(ev, key=lambda e: -e.device_time_total)[:10]
     ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)[:10]
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms
                 / wall_ms, device_ops=sum(e.count for e in ev),
                 port_kernels_ms=sum(e.device_time_total for e in ours) / 1e3,
                 port_kernel_launches=sum(e.count for e in ours),
                 top=[(e.key[:60], e.count, e.device_time_total / 1e3)
                      for e in top],
-                top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
-                         for e in ops])
+                ops=[(e.key, e.count, e.self_device_time_total / 1e3)
+                     for e in ops])

@@ -191,7 +191,7 @@ def _bounce_records(card, m, h, w, seed):
 
 @pytest.mark.parametrize("h,w", [(16, 32), (64, 64)])
 def test_bounce_bwd_sums_the_envmap_gradient(card, monkeypatch, h, w):
-    """B′ on 600,001 rows (more than one pass of its 2,112 blocks): d_blob
+    """B′ on 600,001 rows (several passes of its blocks): d_blob
     and d_thr against the plain version, d_env against the float64 sum of
     the same taps (the atomics' order varies, so 1e-5 of the largest bin)
     and the float32 contraction; no d_env without env_grad; and the
