@@ -188,6 +188,42 @@ def cuda_ms(fn, iters=20, warmup=3, device=False):
     return out
 
 
+def kernel_device_ms(fn, flush=False, iters=20, warmup=3):
+    """Device ms of the one kernel that each call of ``fn`` launches: the
+    mean over the kernels ``torch.profiler`` saw (it can miss some in a
+    long run) and their count. ``flush``: L2 emptied before each call by
+    a 128 MB fill (its kernels left out), the time a caller pays whose
+    inputs come from device memory; else back to back, L2 warm. (None,
+    count) where it saw under half of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty(32 * 2 ** 20, device="cuda") if flush else None
+
+    def call(j):
+        if flush:
+            buf.fill_(float(j))
+        fn()
+    for j in range(warmup):
+        call(j)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for j in range(iters):
+            call(j)
+        torch.cuda.synchronize()
+    evs = [ev for ev in _device_events(prof) if "FillFunctor" not in ev.key]
+    seen = sum(ev.count for ev in evs)
+    total_us = sum(ev.device_time_total for ev in evs)
+    if seen < iters // 2 or total_us <= 0:
+        return None, seen
+    return total_us / seen / 1e3, seen
+
+
+def cold_device_ms(fn, iters=20, warmup=3):
+    """``kernel_device_ms`` with L2 emptied before each call."""
+    return kernel_device_ms(fn, True, iters, warmup)[0]
+
+
 def _device_events(prof):
     """The profiler's device operations, without the ranges of user
     annotations (``Optimizer.step#AdamW.step``), whose device span would
@@ -564,6 +600,24 @@ def ulp_distance(torch, a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def prev_gather_lib(_lib):
+    """The PR 11 row gather (``rowops.cu`` built with
+    ``-DROW_GATHER_PREV``), loaded beside the port's library for the
+    comparison; None where it does not build."""
+    import ctypes
+    path = os.path.join(_lib.BUILD, "rowops_prev.so")
+    p = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-DROW_GATHER_PREV",
+                        "-shared", os.path.join(_lib.CSRC, "rowops.cu"),
+                        "-o", path], capture_output=True, text=True)
+    if p.returncode:
+        log(f"  the PR 11 row gather did not build:\n{p.stdout}{p.stderr}")
+        return None
+    lib = ctypes.CDLL(path)
+    lib.row_gather_launch.argtypes = _lib._SIGNATURES["row_gather_launch"]
+    lib.row_gather_launch.restype = ctypes.c_int
+    return lib
+
+
 def check_kernels(torch, _lib, caps, by_shape, bench_info):
     """Every kernel against its plain version at the main path's shapes
     (``by_shape``, on a trace chunk of the photo scene recorded at
@@ -581,6 +635,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     from materialist_tpu_torch.ops.kernels import rowops
     from materialist_tpu_torch.ops.kernels import shadebounce as sb
     from materialist_tpu_torch.ops.kernels import vreg_gather as vreg
+    from materialist_tpu_torch.utils.profiling import gather_sector_bytes
     from materialist_tpu_torch.opt.loop import InverseOptions, _render_cfg
     from materialist_tpu_torch.render import screenspace as ss
     from materialist_tpu_torch.render import shader
@@ -1304,7 +1359,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
 
     # ---- C: row gather at the continuation pack's shape, (m, 6) rows at
     # the ascending indices of a compaction into cap = 9/16 m, and at
-    # random indices; then every main-path shape at ascending indices
+    # random indices; then every shape of the main path's (>= 10% of its
+    # launches) and of a path-10 fresh iteration, and path 5's, each in
+    # its callers' order; then every route on seeded tables
     cap = 589824
     alive = torch.rand((m,), generator=g, device=dev) < 0.5
     sel, count = rowops.compact_sel(alive, cap)
@@ -1327,60 +1384,142 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     log(f"  row_gather: ascending {times['ascending']:.4f} ms, bf16 "
         f"{times['bf16']:.4f} ms, random {times['random']:.4f} ms; "
         f"index_select ascending {lib_ms:.4f} ms, random {lib_r:.4f} ms")
+    prev = prev_gather_lib(_lib)
+
+    def gather_row(tb, ix, coherent, where, **row):
+        """C against its plain version, bitwise, at one shape; its device
+        ms back to back (``device_ms``, L2 warm as on a path that wrote
+        the table just before) and with L2 emptied before each call
+        (``cold_device_ms``), beside ``index_select``'s, the byte bound
+        (useful bytes) and the sector bound (the 32-byte sectors the
+        card reads, ``utils/profiling.py::gather_sector_bytes``)."""
+        n_t, k_t = tb.shape
+        m_q = ix.numel()
+        shp = (n_t, k_t, m_q, int(coherent))
+        o, _ = compare(f"{where}: row_gather {shp}",
+                       rowops.row_gather(tb, ix, coherent=coherent),
+                       rowops.row_gather_plain(tb, ix), 0.0, 0.0)
+        oks.append(o)
+
+        def run():
+            rowops.row_gather(tb, ix, coherent=coherent)
+
+        def lib_run():
+            torch.index_select(tb, 0, ix)
+        t_k, t_l = cuda_ms(run), cuda_ms(lib_run)
+        row.setdefault("bound_ms", bound(m_q * (4 + 8 * k_t), 0)[0])
+        row.update(shape=list(shp), ms=t_k,
+                   device_ms=kernel_device_ms(run)[0],
+                   cold_device_ms=cold_device_ms(run), library_ms=t_l,
+                   library_device_ms=kernel_device_ms(lib_run)[0],
+                   library_cold_device_ms=cold_device_ms(lib_run),
+                   sector_bound_ms=bound(gather_sector_bytes(ix, k_t),
+                                         0)[0])
+        if prev is not None:
+            out_p = torch.empty((m_q, k_t), device=dev)
+
+            def prev_run():
+                _lib.check(prev.row_gather_launch(
+                    tb.data_ptr(), ix.data_ptr(), out_p.data_ptr(), n_t, m_q,
+                    k_t, 0, int(coherent), _lib.stream_ptr(tb)), "prev")
+            prev_run()
+            if not torch.equal(out_p, rowops.row_gather_plain(tb, ix)):
+                fail(f"{where}: the PR 11 row_gather at {shp} differs")
+            row.update(prev_device_ms=kernel_device_ms(prev_run)[0],
+                       prev_cold_device_ms=cold_device_ms(prev_run))
+        log(f"    {where}: row_gather {shp}"
+            + (f" x {row['launches']} launches" if "launches" in row else "")
+            + f": device {row['device_ms']} ms, L2 emptied "
+            f"{row['cold_device_ms']} ms"
+            + (f" (PR 11 kernel {row['prev_device_ms']}, "
+               f"{row['prev_cold_device_ms']})" if prev is not None else "")
+            + f"; index_select {row['library_device_ms']}, "
+            f"{row['library_cold_device_ms']} ms; bound "
+            f"{row['bound_ms']:.4f}, sector bound "
+            f"{row['sector_bound_ms']:.4f} ms")
+        return row
+
     def gather_rows(shapes, gen, where):
-        """Seeded tables at each shape, gathered at sorted seeded
-        indices, as the trace gathers at ascending ones."""
+        """Seeded tables at each shape, gathered at sorted seeded indices
+        where the callers' indices ascend, at uniform ones where not."""
         rows = []
-        for shp, cnt in shapes:
-            n_t, k_t, m_q = shp
+        for (n_t, k_t, m_q, coherent), cnt in shapes:
             tb = torch.randn((n_t, k_t), generator=gen, device=dev)
-            ix = torch.sort(torch.randint(0, n_t, (m_q,), generator=gen,
-                                          device=dev,
-                                          dtype=torch.int32)).values
-            o, _ = compare(f"{where}: row_gather {shp}",
-                           rowops.row_gather(tb, ix),
-                           rowops.row_gather_plain(tb, ix), 0.0, 0.0)
-            oks.append(o)
-            t_k = dev_ms(lambda: rowops.row_gather(tb, ix))
-            t_l = dev_ms(lambda: torch.index_select(tb, 0, ix))
-            rows.append(dict(shape=list(shp), launches=cnt, ms=t_k,
-                             device_ms=t_k.device_ms, library_ms=t_l,
-                             library_device_ms=t_l.device_ms,
-                             bound_ms=bound(m_q * (4 + 8 * k_t), 0)[0]))
-            log(f"    {where}: row_gather {shp} x {cnt} launches: device "
-                f"{t_k.device_ms} ms, index_select {t_l.device_ms} ms")
+            ix = torch.randint(0, n_t, (m_q,), generator=gen, device=dev,
+                               dtype=torch.int32)
+            if coherent:
+                ix = torch.sort(ix).values
+            rows.append(gather_row(tb, ix, coherent, where, launches=cnt))
+            del tb, ix
         return rows
     rows_g = gather_rows(shapes_of("row_gather"), g, "main")
-    rows_10 = gather_rows(path10_shapes("row_gather"), tr_10.g, "path 10")
+    # every shape of a path-10 fresh iteration, most launched first
+    rows_10 = gather_rows(
+        sorted(((shp, v) for (nm, shp), v in bench_info["by_shape"].items()
+                if nm == "row_gather"),
+               key=lambda r: (-r[1], [-x for x in r[0]])), tr_10.g,
+        "path 10")
+    if any(r[t] is None for r in rows_10 + rows_g
+           for t in ("device_ms", "cold_device_ms")):
+        fail("the profiler saw no device time of a row_gather row")
+    fresh_ms = sum(r["launches"] * r["device_ms"] for r in rows_10)
+    fresh_cold = sum(r["launches"] * r["cold_device_ms"] for r in rows_10)
+    log(f"  path 10: C's device ms in a fresh iteration {fresh_ms:.4f} "
+        f"(L2 emptied before each call {fresh_cold:.4f})"
+        + (" against the PR 11 kernel's "
+           f"{sum(r['launches'] * r['prev_device_ms'] for r in rows_10):.4f}"
+           f" ({sum(r['launches'] * r['prev_cold_device_ms'] for r in rows_10):.4f})"
+           if prev is not None else ""))
     tr_10 = None
     torch.cuda.empty_cache()
     # the transparency edit's rows (path 5): the trace's side table of the
     # (N, 15) transparent table, 20 wide, fetched for a chunk of 8 samples
-    # a pixel at seeded hit indices. The queries repeat rows, so the bound
-    # reads each distinct row of the table once.
+    # a pixel at seeded hit indices. The queries repeat rows, so the byte
+    # bound reads each distinct row of the table once.
     k_t = 20
     tb = torch.randn((n, k_t), generator=g, device=dev)
     ix = torch.randint(0, n, (8 * n,), generator=g, device=dev,
                        dtype=torch.int32)
-    o, _ = compare(f"row_gather ({n}, {k_t}, {8 * n})",
-                   rowops.row_gather(tb, ix),
-                   rowops.row_gather_plain(tb, ix), 0.0, 0.0)
-    oks.append(o)
-    t_k = dev_ms(lambda: rowops.row_gather(tb, ix))
-    t_l = dev_ms(lambda: torch.index_select(tb, 0, ix))
     distinct = int(torch.unique(ix).numel())
-    rows_w = [dict(shape=[n, k_t, 8 * n], path="path 5", ms=t_k,
-                   device_ms=t_k.device_ms, library_ms=t_l,
-                   library_device_ms=t_l.device_ms, distinct_rows=distinct,
-                   bound_ms=bound(8 * n * (4 + 4 * k_t)
-                                  + distinct * 4 * k_t, 0)[0])]
-    log(f"    row_gather ({n}, {k_t}, {8 * n}), {distinct} distinct rows: "
-        f"device {t_k.device_ms} ms, index_select {t_l.device_ms} ms")
+    rows_w = [gather_row(tb, ix, False, "path 5", path="path 5",
+                         distinct_rows=distinct,
+                         bound_ms=bound(8 * n * (4 + 4 * k_t)
+                                        + distinct * 4 * k_t, 0)[0])]
+    del tb, ix
+    # every route: each compiled-in width and the run-time one (15), on a
+    # contiguous table, a table[1:] view and a view one float in (the
+    # float route of every width); tables of 64 MB, past L2, so that the
+    # ascending gathers stream past L1
+    routes = []
+    for k_t in (3, 5, 6, 8, 13, 15, 20):
+        n_t = 2 ** 24 // k_t
+        base = torch.randn((n_t, k_t), generator=g, device=dev)
+        flat = torch.empty(n_t * k_t + 1, device=dev)
+        flat[1:] = base.reshape(-1)
+        up = torch.cat([base[:1], base])
+        ix = torch.randint(0, n_t, (2 ** 20 + 3,), generator=g, device=dev,
+                           dtype=torch.int32)
+        for view, tb in (("contiguous", base), ("row_view", up[1:]),
+                         ("float_offset", flat[1:].view(n_t, k_t))):
+            for coherent, iq in ((False, ix), (True, torch.sort(ix).values)):
+                for exact in (True, False):
+                    o, _ = compare(
+                        f"row_gather route {k_t} {view} coherent={coherent} "
+                        f"exact={exact}",
+                        rowops.row_gather(tb, iq, exact=exact,
+                                          coherent=coherent),
+                        rowops.row_gather_plain(tb, iq, exact), 0.0, 0.0)
+                    oks.append(o)
+                    routes.append(dict(k=k_t, view=view, coherent=coherent,
+                                       exact=exact, ok=o))
+        del base, flat, up
+    torch.cuda.empty_cache()
     entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
           times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
           library_ms=lib_ms, by_shape=rows_g, by_shape_path10=rows_10,
-          wide_rows=rows_w,
-          ms_bf16=times["bf16"],
+          path10_fresh_device_ms=fresh_ms,
+          path10_fresh_cold_device_ms=fresh_cold, wide_rows=rows_w,
+          routes=routes, ms_bf16=times["bf16"],
           ms_random=times["random"], library_ms_random=lib_r,
           device_ms_random=times["random"].device_ms,
           library_device_ms_random=lib_r.device_ms)
@@ -1953,7 +2092,7 @@ def forward_paths(torch, _lib):
         wide = {tuple(shp): c for (nm, shp), c
                 in _lib.LAUNCHES_BY_SHAPE.items() if nm == "row_gather"}
         log(f"  row_gather shapes: {wide}")
-        if wide.get((512 * 512, 20, 8 * 512 * 512), 0) \
+        if wide.get((512 * 512, 20, 8 * 512 * 512, 0), 0) \
                 != launches["row_gather"]:
             fail(f"path 5 fetched other rows than the transparent side "
                  f"table's: {wide}")

@@ -1,7 +1,8 @@
 """Ranks for the sharded paths, and the four agreement checks of the JAX
 package's multi-device dry run (``__graft_entry__.py::dryrun_multichip``).
 
-``run_ranks(fn, world, args, device)`` starts ``world`` ranks with
+``run_ranks(fn, world, args, device)`` starts ``world`` ranks (on the
+card unless the caller asks for the CPU) with
 ``torch.multiprocessing`` (spawn), each in a process group that meets
 through a file in a temporary directory: gloo on the CPU; on CUDA, nccl
 when every rank has a card of its own, else gloo (nccl refuses two ranks
@@ -85,13 +86,14 @@ def _rank_main(rank, world, device_type, init_file, timeout, fn, args, q):
         sys.exit(1)
 
 
-def run_ranks(fn, world: int, args=(), device: str = "cpu",
+def run_ranks(fn, world: int, args=(), device=None,
               timeout: float = 120.0):
-    """Run ``fn(device, *args)`` in ``world`` ranks; returns their results
-    in rank order. ``fn`` must be importable (spawned ranks import it).
-    On CUDA the kernels are built here first, so that the ranks never
+    """Run ``fn(device, *args)`` in ``world`` ranks on ``device`` (default:
+    the card; raises without one unless ``device="cpu"``); returns their
+    results in rank order. ``fn`` must be importable (spawned ranks import
+    it). On CUDA the kernels are built here first, so that the ranks never
     race on the build."""
-    device_type = torch.device(device).type
+    device_type = device_mod.resolve(device).type
     if device_type == "cuda":
         _lib.lib()
     ctx = torch.multiprocessing.get_context("spawn")
@@ -360,7 +362,7 @@ def dryrun_multichip(world: int, device=None, res: int = 64,
                march_vectorized=True, march_steps=4, shadow_steps=4,
                fine_steps=1, shadow_fine_steps=1, film_jitter=0.5)
     return run_ranks(dryrun_rank, world, args=(toy_scene(res), cfg),
-                     device=str(dev), timeout=timeout)
+                     device=dev, timeout=timeout)
 
 
 if __name__ == "__main__":

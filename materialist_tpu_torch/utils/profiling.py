@@ -95,3 +95,29 @@ def device_summary(prof, wall_ms: float) -> dict:
                      for e in top],
                 ops=[(e.key, e.count, e.self_device_time_total / 1e3)
                      for e in ops])
+
+
+def gather_sector_bytes(idx, k: int, elem_bytes: int = 4,
+                        sector: int = 32) -> int:
+    """The least bytes device memory moves for the row gather
+    ``out[q] = table[idx[q]]`` from a table of (N, k) ``elem_bytes``-byte
+    elements whose base lies on a sector boundary: each distinct
+    ``sector``-byte sector of the table that a fetched row touches, read
+    once however many queries share it, plus the index and the output,
+    each moved once. The card reads device memory in 32-byte sectors, so
+    a row that straddles a boundary costs two, and rows fetched one in
+    several cost a sector each."""
+    flat = idx.reshape(-1)
+    m = flat.numel()
+    if m == 0:
+        return 0
+    row_b = k * elem_bytes
+    rows = torch.unique(flat.long())
+    first = rows * row_b // sector
+    last = (rows * row_b + row_b - 1) // sector
+    span = int((last - first).max()) + 1
+    secs = first[:, None] + torch.arange(span, device=rows.device)
+    # row by row the sectors never fall, so equal ones are neighbours
+    secs = secs[secs <= last[:, None]]
+    n_sec = int(torch.unique_consecutive(secs).numel())
+    return n_sec * sector + m * (flat.element_size() + row_b)

@@ -511,6 +511,44 @@ def test_env_kernels_refuse_large_tables(card):
                        torch.rand((8, 3), device=card))
 
 
+def _gather_tables(table):
+    """The table, a ``table[1:]`` view of one row more (its base a row's
+    bytes further on) and a view whose base is one float further on (4-
+    but not 8- or 16-byte aligned: the float route of every width)."""
+    n, k = table.shape
+    up = torch.cat([table[:1], table])
+    flat = torch.empty(n * k + 1, device=table.device)
+    flat[1:] = table.reshape(-1)
+    return {"contiguous": table, "row_view": up[1:],
+            "float_offset": flat[1:].view(n, k)}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "bf16"])
+@pytest.mark.parametrize("k", [3, 5, 6, 8, 13, 15, 20])
+def test_row_gather_routes(card, k, exact):
+    """C bitwise equal to its plain version on every route of a width
+    (vector loads where the base allows, floats where it does not; 15 is
+    the run-time width), at query counts around a warp's group and past
+    2^20, in ascending, descending, uniform and repeated order."""
+    g = torch.Generator(device=card).manual_seed(k)
+    n = 5000
+    base = torch.randn((n, k), generator=g, device=card)
+    for name, table in _gather_tables(base).items():
+        assert torch.equal(table, base), name
+        for m in (1, 31, 33, 4097, 2 ** 20 + 3):
+            rnd = torch.randint(0, n, (m,), generator=g, device=card,
+                                dtype=torch.int32)
+            asc = torch.sort(rnd).values
+            few = rnd[torch.randint(0, min(m, 3), (m,), generator=g,
+                                    device=card)]
+            for order, idx in (("random", rnd), ("ascending", asc),
+                               ("descending", asc.flip(0)),
+                               ("repeated", few)):
+                got = rowops.row_gather(table, idx, exact=exact)
+                assert torch.equal(got, rowops.row_gather_plain(
+                    table, idx, exact)), (name, m, order)
+
+
 @pytest.mark.parametrize("k", [15, 20])
 def test_row_gather_wide_rows(card, k):
     """The transparent BSDF's (N, 15) table (run-time width) and the

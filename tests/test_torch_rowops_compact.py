@@ -25,20 +25,90 @@ def _bf16(x):
         torch.float32).numpy()
 
 
-@pytest.mark.parametrize("n,k,shape", [(300, 6, (1024,)), (64, 3, (2, 500)),
-                                       (2048, 5, (700,))])
-def test_row_gather_matches_jax(n, k, shape):
-    rng = np.random.default_rng(n)
+def _gather_indices(n, shape, order, rng):
+    """Indices in [0, n) of ``shape`` in the order of one family of
+    callers of the gather."""
+    size = int(np.prod(shape))
+    if order == "sorted":          # sorted, repeats allowed
+        idx = np.sort(rng.integers(0, n, size))
+    elif order == "gaps":          # ascending with gaps: a compaction's
+        idx = np.sort(rng.choice(n, size, replace=False))
+    elif order == "random":        # uniform: hit indices
+        idx = rng.integers(0, n, size)
+    elif order == "repeats":       # a few rows fetched over and over
+        idx = rng.choice(rng.integers(0, n, 3), size)
+    return idx.astype(np.int32).reshape(shape)
+
+
+_GATHER_CASES = [
+    pytest.param(300, 6, (1024,), "sorted", id="300-6-shape0"),
+    pytest.param(64, 3, (2, 500), "sorted", id="64-3-shape1"),
+    pytest.param(2048, 5, (700,), "sorted", id="2048-5-shape2"),
+] + [pytest.param(1000, k, shape, order, id=f"k{k}-{order}")
+     for k in (3, 5, 6, 8, 13, 15, 20)
+     for order, shape in (("gaps", (3, 111)), ("random", (777,)),
+                          ("repeats", (2, 50)), ("single", (1,)))]
+
+
+@pytest.mark.parametrize("n,k,shape,order", _GATHER_CASES)
+def test_row_gather_matches_jax(n, k, shape, order):
+    """Every width the tracer gathers (15 is the run-time route), in the
+    orders of its callers; ``exact=False`` against the JAX result rounded
+    to bf16, which is what the TPU kernel's DEFAULT precision gives (off
+    the TPU JAX's own gather is always exact)."""
+    rng = np.random.default_rng(n + k)
     tab = rng.normal(size=(n, k)).astype(np.float32)
-    idx = np.sort(rng.integers(0, n, shape).astype(np.int32), axis=-1)
-    ref = np.asarray(jrow.row_gather(jnp.asarray(tab), jnp.asarray(idx),
-                                     exact=True, coherent=True))
-    got = trow.row_gather(_t(tab), _t(idx), exact=True, coherent=True)
+    idx = (np.full(shape, n - 1, np.int32) if order == "single"
+           else _gather_indices(n, shape, order, rng))
+    coherent = order in ("sorted", "gaps", "single")
+    ref = jrow.row_gather(jnp.asarray(tab), jnp.asarray(idx), exact=True,
+                          coherent=coherent)
+    got = trow.row_gather(_t(tab), _t(idx), exact=True, coherent=coherent)
     assert got.shape == shape + (k,) and got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # exact=False: the fetched values rounded to bf16
     got16 = trow.row_gather(_t(tab), _t(idx), exact=False)
-    np.testing.assert_array_equal(got16.numpy(), _bf16(ref))
+    np.testing.assert_array_equal(
+        got16.numpy(), np.asarray(ref.astype(jnp.bfloat16).astype(
+            jnp.float32)))
+
+
+def _sectors_brute(idx, k):
+    """Distinct 32-byte sectors of an (N, k) float32 table that the rows
+    at idx touch, one byte at a time."""
+    return len({(r * k * 4 + b) // 32 for r in np.asarray(idx).ravel()
+                for b in range(k * 4)})
+
+
+@pytest.mark.parametrize("idx,k,sectors", [
+    ([2], 3, 2),            # bytes 24..35: a 12-byte row over a boundary
+    ([0, 1], 3, 1),         # bytes 0..23: two rows in one sector
+    ([6, 6, 6, 6], 3, 1),   # bytes 72..83, fetched four times
+    ([0], 20, 3),           # an 80-byte row: bytes 0..79
+    ([1], 20, 3),           # bytes 80..159: sectors 2, 3, 4
+    ([0, 1], 20, 5),        # the two share sector 2
+    ([0, 8], 8, 2),         # 32-byte rows, one sector each
+])
+def test_gather_sector_bytes(idx, k, sectors):
+    """The sector bound of the gather: each distinct sector once, plus 4
+    bytes of index and 4·k of output a query."""
+    from materialist_tpu_torch.utils.profiling import gather_sector_bytes
+    ix = torch.tensor(idx, dtype=torch.int32)
+    assert _sectors_brute(idx, k) == sectors
+    assert gather_sector_bytes(ix, k) == 32 * sectors + len(idx) * (4 + 4 * k)
+
+
+@pytest.mark.parametrize("k", [3, 5, 6, 13, 20])
+def test_gather_sector_bytes_seeded(k):
+    """Against the byte-by-byte count on seeded sorted, random and
+    repeated indices."""
+    from materialist_tpu_torch.utils.profiling import gather_sector_bytes
+    rng = np.random.default_rng(k)
+    for order in ("sorted", "random", "repeats"):
+        idx = _gather_indices(500, (300,), order, rng)
+        assert gather_sector_bytes(torch.from_numpy(idx), k) == (
+            32 * _sectors_brute(idx, k) + idx.size * (4 + 4 * k)), order
+    assert gather_sector_bytes(torch.zeros((0,), dtype=torch.int32), k) == 0
 
 
 @pytest.mark.parametrize("frac_alive,cap", [(0.3, 1024), (0.5, 1024),
@@ -240,13 +310,16 @@ def test_scatter_add_coherent_into_matches_jax():
 def test_launch_counts_by_shape():
     from materialist_tpu_torch.ops.kernels import _lib
     _lib.reset_launches()
-    _lib.count_launch("row_gather", (10, 3, 4))
-    _lib.count_launch("row_gather", (10, 3, 4))
+    # row_gather's shape: table rows, width, queries, ascending indices
+    _lib.count_launch("row_gather", (10, 3, 4, 1))
+    _lib.count_launch("row_gather", (10, 3, 4, 1))
+    _lib.count_launch("row_gather", (10, 3, 4, 0))
     _lib.count_launch("compact_sel", (8, 4))
     _lib.count_launch("march_pair")
-    assert _lib.LAUNCHES["row_gather"] == 2
+    assert _lib.LAUNCHES["row_gather"] == 3
     assert _lib.LAUNCHES["march_pair"] == 1
-    assert _lib.LAUNCHES_BY_SHAPE == {("row_gather", (10, 3, 4)): 2,
+    assert _lib.LAUNCHES_BY_SHAPE == {("row_gather", (10, 3, 4, 1)): 2,
+                                      ("row_gather", (10, 3, 4, 0)): 1,
                                       ("compact_sel", (8, 4)): 1}
     _lib.reset_launches()
     assert not _lib.LAUNCHES_BY_SHAPE and not any(_lib.LAUNCHES.values())
@@ -265,6 +338,8 @@ def test_kernel_names_cover_every_global_function():
     n_global = sum(len(re.findall(r"__global__", open(
         os.path.join(_lib.CSRC, src)).read())) for src in _lib.SOURCES)
     assert len(names) == len(set(names)) == n_global
+    # every name parsed, launch bounds and all
+    assert all(nm.endswith("_kernel") for nm in names), names
     assert {"march_kernel", "compact_count_kernel",
             "compact_write_kernel"} <= set(names)
     assert set(_lib.KERNELS_PER_LAUNCH) <= set(_lib.LAUNCHES)

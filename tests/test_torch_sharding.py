@@ -74,7 +74,7 @@ def test_dryrun_asserts_on_gloo_ranks(scene, world):
     unrendered, as the JAX package does."""
     cfg = dict(ASSERT_CFG, spp=3 if world == 3 else 4)
     out = dryrun.run_ranks(dryrun.dryrun_rank, world, args=(scene[1], cfg),
-                           timeout=DEADLINE)
+                           device="cpu", timeout=DEADLINE)
     assert len(out) == world
     for r in out:
         assert [ln[:3] for ln in r["lines"]] == ["1/4", "2/4", "3/4", "4/4"]
@@ -87,7 +87,7 @@ def test_dryrun_asserts_on_gloo_ranks(scene, world):
 def test_step_state_identical_across_ranks(scene, axis):
     out = dryrun.run_ranks(train_step_rank, 2,
                            args=(scene[1], STEP_CFG, axis, LR),
-                           timeout=DEADLINE)
+                           device="cpu", timeout=DEADLINE)
     assert all(r["identical"] for r in out)
     assert out[0]["loss"] == out[1]["loss"] and np.isfinite(out[0]["loss"])
     for key in ("params", "grads", "state"):
@@ -130,7 +130,7 @@ def _step_matches_jax(scene, axis):
 
     out = dryrun.run_ranks(train_step_rank, 2,
                            args=(port, STEP_CFG, axis, LR),
-                           timeout=DEADLINE)[0]
+                           device="cpu", timeout=DEADLINE)[0]
     assert abs(out["loss"] - loss_j) <= 5e-3 * abs(loss_j)
     p0 = (sc["alb"], sc["rough"], sc["met"], sc["env"])
     for name, g_t, g_r, p_t, p_r, start in zip(NAMES, out["grads"], g_j,
@@ -162,7 +162,7 @@ def test_px_render_matches_jax(scene):
         img_j = np.asarray(render(jax.random.PRNGKey(2), sc["gj"], mats,
                                   env))
     out = dryrun.run_ranks(px_render_rank, 2, args=(port, RENDER_CFG, 2),
-                           timeout=DEADLINE)
+                           device="cpu", timeout=DEADLINE)
     assert img_j.shape == (RES, RES, 3)
     for img_t in out:
         assert img_t.shape == img_j.shape and np.isfinite(img_t).all()
@@ -183,6 +183,14 @@ def test_dryrun_multichip_defaults_to_the_card(monkeypatch):
         dryrun.dryrun_multichip(2, res=16, timeout=DEADLINE)
 
 
+def test_run_ranks_defaults_to_the_card(monkeypatch):
+    """``run_ranks`` without a device runs on the card: without one it
+    raises before it starts a rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.run_ranks(mesh_2d_coords, 2, args=(1, 2), timeout=DEADLINE)
+
+
 def test_dryrun_command_line_defaults_to_the_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run(
@@ -196,7 +204,8 @@ def test_dryrun_command_line_defaults_to_the_card():
 def test_mesh_2d_layout():
     """make_mesh_2d(2, 2) lays the ranks out as the JAX package's
     make_mesh_2d lays out devices: reshape(n_px, n_spp)."""
-    out = dryrun.run_ranks(mesh_2d_coords, 4, args=(2, 2), timeout=DEADLINE)
+    out = dryrun.run_ranks(mesh_2d_coords, 4, args=(2, 2), device="cpu",
+                           timeout=DEADLINE)
     assert sorted(out) == [(r, r // 2, r % 2, 2, 2) for r in range(4)]
 
 
