@@ -22,7 +22,13 @@ minutes on an NVIDIA H100, the kernels' build included). It
    tenth of its launches in one fresh iteration, and its largest), on a
    trace chunk of the bench's 1024² scene recorded at the bench's plan
    and caps; the march and the material adjoint also at their worst case
-   at that plan's chunk (8·1024² rays of a seeded depth map). The
+   at that plan's chunk (8·1024² rays of a seeded depth map). The row
+   gather is timed at every shape of a path-10 fresh iteration, at sorted
+   seeded indices where its callers' ascend and uniform ones where not,
+   with L2 warm and emptied before each call, beside its byte bound and
+   its sector bound (the 32-byte sectors the card reads), and is held on
+   every route: each compiled-in width and a run-time one, on aligned
+   and unaligned views. The
    envmap sampler's rows and columns must equal its plain version's on
    every query, its directions and pdfs lie within 2 units in the last
    place. The adjoint's envmap gradient is held to a float64 sum of the
@@ -191,10 +197,10 @@ def cuda_ms(fn, iters=20, warmup=3, device=False):
 def kernel_device_ms(fn, flush=False, iters=20, warmup=3):
     """Device ms of the one kernel that each call of ``fn`` launches: the
     mean over the kernels ``torch.profiler`` saw (it can miss some in a
-    long run) and their count. ``flush``: L2 emptied before each call by
-    a 128 MB fill (its kernels left out), the time a caller pays whose
-    inputs come from device memory; else back to back, L2 warm. (None,
-    count) where it saw under half of them."""
+    long run). ``flush``: L2 emptied before each call by a 128 MB fill
+    (its kernels left out), the time a caller pays whose inputs come from
+    device memory; else back to back, L2 warm. None where it saw under
+    half of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     buf = torch.empty(32 * 2 ** 20, device="cuda") if flush else None
@@ -215,13 +221,8 @@ def kernel_device_ms(fn, flush=False, iters=20, warmup=3):
     seen = sum(ev.count for ev in evs)
     total_us = sum(ev.device_time_total for ev in evs)
     if seen < iters // 2 or total_us <= 0:
-        return None, seen
-    return total_us / seen / 1e3, seen
-
-
-def cold_device_ms(fn, iters=20, warmup=3):
-    """``kernel_device_ms`` with L2 emptied before each call."""
-    return kernel_device_ms(fn, True, iters, warmup)[0]
+        return None
+    return total_us / seen / 1e3
 
 
 def _device_events(prof):
@@ -598,24 +599,6 @@ def ulp_distance(torch, a, b):
         i = x.contiguous().view(torch.int32).to(torch.int64)
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
     return int((ordered(a) - ordered(b)).abs().max())
-
-
-def prev_gather_lib(_lib):
-    """The PR 11 row gather (``rowops.cu`` built with
-    ``-DROW_GATHER_PREV``), loaded beside the port's library for the
-    comparison; None where it does not build."""
-    import ctypes
-    path = os.path.join(_lib.BUILD, "rowops_prev.so")
-    p = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-DROW_GATHER_PREV",
-                        "-shared", os.path.join(_lib.CSRC, "rowops.cu"),
-                        "-o", path], capture_output=True, text=True)
-    if p.returncode:
-        log(f"  the PR 11 row gather did not build:\n{p.stdout}{p.stderr}")
-        return None
-    lib = ctypes.CDLL(path)
-    lib.row_gather_launch.argtypes = _lib._SIGNATURES["row_gather_launch"]
-    lib.row_gather_launch.restype = ctypes.c_int
-    return lib
 
 
 def check_kernels(torch, _lib, caps, by_shape, bench_info):
@@ -1384,7 +1367,6 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     log(f"  row_gather: ascending {times['ascending']:.4f} ms, bf16 "
         f"{times['bf16']:.4f} ms, random {times['random']:.4f} ms; "
         f"index_select ascending {lib_ms:.4f} ms, random {lib_r:.4f} ms")
-    prev = prev_gather_lib(_lib)
 
     def gather_row(tb, ix, coherent, where, **row):
         """C against its plain version, bitwise, at one shape; its device
@@ -1392,7 +1374,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         the table just before) and with L2 emptied before each call
         (``cold_device_ms``), beside ``index_select``'s, the byte bound
         (useful bytes) and the sector bound (the 32-byte sectors the
-        card reads, ``utils/profiling.py::gather_sector_bytes``)."""
+        card reads, ``utils/profiling.py::gather_sector_bytes``; also
+        counted in 64-byte sectors, the bound where device memory is
+        read two sectors at a time)."""
         n_t, k_t = tb.shape
         m_q = ix.numel()
         shp = (n_t, k_t, m_q, int(coherent))
@@ -1409,39 +1393,48 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         t_k, t_l = cuda_ms(run), cuda_ms(lib_run)
         row.setdefault("bound_ms", bound(m_q * (4 + 8 * k_t), 0)[0])
         row.update(shape=list(shp), ms=t_k,
-                   device_ms=kernel_device_ms(run)[0],
-                   cold_device_ms=cold_device_ms(run), library_ms=t_l,
-                   library_device_ms=kernel_device_ms(lib_run)[0],
-                   library_cold_device_ms=cold_device_ms(lib_run),
+                   device_ms=kernel_device_ms(run),
+                   cold_device_ms=kernel_device_ms(run, flush=True),
+                   library_ms=t_l,
+                   library_device_ms=kernel_device_ms(lib_run),
+                   library_cold_device_ms=kernel_device_ms(lib_run,
+                                                           flush=True),
                    sector_bound_ms=bound(gather_sector_bytes(ix, k_t),
-                                         0)[0])
-        if prev is not None:
-            out_p = torch.empty((m_q, k_t), device=dev)
-
-            def prev_run():
-                _lib.check(prev.row_gather_launch(
-                    tb.data_ptr(), ix.data_ptr(), out_p.data_ptr(), n_t, m_q,
-                    k_t, 0, int(coherent), _lib.stream_ptr(tb)), "prev")
-            prev_run()
-            if not torch.equal(out_p, rowops.row_gather_plain(tb, ix)):
-                fail(f"{where}: the PR 11 row_gather at {shp} differs")
-            row.update(prev_device_ms=kernel_device_ms(prev_run)[0],
-                       prev_cold_device_ms=cold_device_ms(prev_run))
+                                         0)[0],
+                   sector64_bound_ms=bound(gather_sector_bytes(
+                       ix, k_t, sector=64), 0)[0])
         log(f"    {where}: row_gather {shp}"
             + (f" x {row['launches']} launches" if "launches" in row else "")
             + f": device {row['device_ms']} ms, L2 emptied "
-            f"{row['cold_device_ms']} ms"
-            + (f" (PR 11 kernel {row['prev_device_ms']}, "
-               f"{row['prev_cold_device_ms']})" if prev is not None else "")
-            + f"; index_select {row['library_device_ms']}, "
+            f"{row['cold_device_ms']} ms; index_select "
+            f"{row['library_device_ms']}, "
             f"{row['library_cold_device_ms']} ms; bound "
             f"{row['bound_ms']:.4f}, sector bound "
-            f"{row['sector_bound_ms']:.4f} ms")
+            f"{row['sector_bound_ms']:.4f} ms (64-byte sectors "
+            f"{row['sector64_bound_ms']:.4f})")
         return row
 
-    def gather_rows(shapes, gen, where):
+    def compaction_idx(tr, n_t, m_q):
+        """The recorded chunk's own indices for an ascending gather of m_q
+        rows from n_t: a compaction's (its live rays ascending, then its
+        padding at 0), or the second compaction's taken through the
+        first's (the film indices of the rays that survive both); None
+        where the chunk has no such compaction."""
+        sels = [(a.numel(), cap, rowops.compact_sel(a, cap)[0])
+                for a, cap in tr.sels]
+        for n_a, cap, sl in sels:
+            if (n_a, cap) == (n_t, m_q):
+                return sl
+        for (n1, c1, s1), (n2, c2, s2) in zip(sels, sels[1:]):
+            if n2 == c1 and (n1, c2) == (n_t, m_q):
+                return s1[s2.long()]
+        return None
+
+    def gather_rows(shapes, gen, where, tr):
         """Seeded tables at each shape, gathered at sorted seeded indices
-        where the callers' indices ascend, at uniform ones where not."""
+        where the callers' indices ascend, at uniform ones where not; an
+        ascending shape also at the recorded chunk's own compaction
+        indices (``compaction``), whose padding repeats one row."""
         rows = []
         for (n_t, k_t, m_q, coherent), cnt in shapes:
             tb = torch.randn((n_t, k_t), generator=gen, device=dev)
@@ -1450,26 +1443,30 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             if coherent:
                 ix = torch.sort(ix).values
             rows.append(gather_row(tb, ix, coherent, where, launches=cnt))
-            del tb, ix
+            ic = compaction_idx(tr, n_t, m_q) if coherent else None
+            if ic is not None:
+                rows[-1]["compaction"] = gather_row(
+                    tb, ic, True, where + ", its compaction's indices")
+            del tb, ix, ic
         return rows
-    rows_g = gather_rows(shapes_of("row_gather"), g, "main")
+    rows_g = gather_rows(shapes_of("row_gather"), g, "main", tr_main)
     # every shape of a path-10 fresh iteration, most launched first
     rows_10 = gather_rows(
         sorted(((shp, v) for (nm, shp), v in bench_info["by_shape"].items()
                 if nm == "row_gather"),
                key=lambda r: (-r[1], [-x for x in r[0]])), tr_10.g,
-        "path 10")
-    if any(r[t] is None for r in rows_10 + rows_g
+        "path 10", tr_10)
+    if any(r.get(c, r)[t] is None for r in rows_10 + rows_g
+           for c in ("", "compaction")
            for t in ("device_ms", "cold_device_ms")):
         fail("the profiler saw no device time of a row_gather row")
     fresh_ms = sum(r["launches"] * r["device_ms"] for r in rows_10)
     fresh_cold = sum(r["launches"] * r["cold_device_ms"] for r in rows_10)
+    fresh_own = sum(r["launches"] * r.get("compaction", r)["device_ms"]
+                    for r in rows_10)
     log(f"  path 10: C's device ms in a fresh iteration {fresh_ms:.4f} "
-        f"(L2 emptied before each call {fresh_cold:.4f})"
-        + (" against the PR 11 kernel's "
-           f"{sum(r['launches'] * r['prev_device_ms'] for r in rows_10):.4f}"
-           f" ({sum(r['launches'] * r['prev_cold_device_ms'] for r in rows_10):.4f})"
-           if prev is not None else ""))
+        f"(L2 emptied before each call {fresh_cold:.4f}; at the chunk's "
+        f"own compaction indices where it has them {fresh_own:.4f})")
     tr_10 = None
     torch.cuda.empty_cache()
     # the transparency edit's rows (path 5): the trace's side table of the
@@ -1488,11 +1485,10 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     del tb, ix
     # every route: each compiled-in width and the run-time one (15), on a
     # contiguous table, a table[1:] view and a view one float in (the
-    # float route of every width); tables of 64 MB, past L2, so that the
-    # ascending gathers stream past L1
+    # float route of every width), at random indices
     routes = []
     for k_t in (3, 5, 6, 8, 13, 15, 20):
-        n_t = 2 ** 24 // k_t
+        n_t = 2 ** 20
         base = torch.randn((n_t, k_t), generator=g, device=dev)
         flat = torch.empty(n_t * k_t + 1, device=dev)
         flat[1:] = base.reshape(-1)
@@ -1501,24 +1497,21 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                            dtype=torch.int32)
         for view, tb in (("contiguous", base), ("row_view", up[1:]),
                          ("float_offset", flat[1:].view(n_t, k_t))):
-            for coherent, iq in ((False, ix), (True, torch.sort(ix).values)):
-                for exact in (True, False):
-                    o, _ = compare(
-                        f"row_gather route {k_t} {view} coherent={coherent} "
-                        f"exact={exact}",
-                        rowops.row_gather(tb, iq, exact=exact,
-                                          coherent=coherent),
-                        rowops.row_gather_plain(tb, iq, exact), 0.0, 0.0)
-                    oks.append(o)
-                    routes.append(dict(k=k_t, view=view, coherent=coherent,
-                                       exact=exact, ok=o))
+            for exact in (True, False):
+                o, _ = compare(f"row_gather route {k_t} {view} exact={exact}",
+                               rowops.row_gather(tb, ix, exact=exact),
+                               rowops.row_gather_plain(tb, ix, exact), 0.0,
+                               0.0)
+                oks.append(o)
+                routes.append(dict(k=k_t, view=view, exact=exact, ok=o))
         del base, flat, up
     torch.cuda.empty_cache()
     entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
           times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
           library_ms=lib_ms, by_shape=rows_g, by_shape_path10=rows_10,
           path10_fresh_device_ms=fresh_ms,
-          path10_fresh_cold_device_ms=fresh_cold, wide_rows=rows_w,
+          path10_fresh_cold_device_ms=fresh_cold,
+          path10_fresh_own_indices_device_ms=fresh_own, wide_rows=rows_w,
           routes=routes, ms_bf16=times["bf16"],
           ms_random=times["random"], library_ms_random=lib_r,
           device_ms_random=times["random"].device_ms,

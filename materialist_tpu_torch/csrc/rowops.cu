@@ -26,15 +26,16 @@
 //  - the lanes of a warp move consecutive pieces of the output, so every
 //    store instruction writes 32 consecutive pieces and a load
 //    instruction reads neighbouring bytes of a few rows;
-//  - rows go through L1, where neighbouring queries and a row split over
-//    two rounds share sectors, except for an ascending gather from a
-//    table larger than L2 (a compaction of a 1024² chunk's state), whose
-//    rows no SM reads again: those bypass L1 (ld.global.nc.L1::no_allocate);
+//  - rows go through L1 (ld.global.nc), where neighbouring queries, the
+//    padding rows of a compaction (all at index 0) and a row split over
+//    two rounds share sectors. Reads past L1 (L1::no_allocate) measured
+//    faster on seeded ascending indices from tables larger than L2, but
+//    slower on the bench's own compactions, whose padding repeats row 0;
 //  - a warp issues all row loads of its group of 32 rows before its first
-//    store, on a persistent grid of at most the blocks the card holds at
-//    once, with registers capped so that an SM holds 64 warps (32 for
-//    rows wider than 8 floats). Holding 2 to 8 groups a warp, or whole
-//    rows a round, measured no faster (more registers, fewer warps).
+//    store, with registers capped so that an SM holds 64 warps (32 for
+//    rows wider than 8 floats), one group a warp. Holding 2 to 8 groups a
+//    warp, whole rows a round, a persistent grid, or each lane loading
+//    its row's index itself measured no faster at 1M queries.
 // The widths the tracer uses are compiled in; any other width moves
 // floats at a run-time width. Output offsets are 32 bits wide below 2^31
 // elements. With bf16 set each value is rounded to bf16 (round to
@@ -337,99 +338,11 @@ __global__ void compact_write_kernel(const uint8_t* __restrict__ flags,
 
 // ---- row gather
 
-#ifdef ROW_GATHER_PREV
-constexpr int kUnroll = 4;
-// I: the type of the element counter (unsigned below 2^31 elements).
-// K: the row width when it is one the tracer uses (the division is then
-// by a constant), 0 for any other width.
-template <typename I, int K>
-__global__ void gather_kernel(const float* __restrict__ table,
-                              const int* __restrict__ idx,
-                              float* __restrict__ out, I n, I k_any,
-                              int bf16) {
-  const I k = K > 0 ? (I)K : k_any;
-  // kUnroll elements per thread, a block's width apart (stores stay
-  // coalesced); all index loads, then all row loads, are issued before
-  // the first store, so each thread keeps several reads in flight
-  const I base = (I)blockIdx.x * (blockDim.x * kUnroll) + threadIdx.x;
-  const float* src[kUnroll];
-#pragma unroll
-  for (int j = 0; j < kUnroll; ++j) {
-    const I i = base + (I)j * blockDim.x;
-    const I q = i < n ? i / k : 0;
-    const I c = i < n ? i - q * k : 0;
-    src[j] = table + (long long)__ldg(idx + q) * k + c;
-  }
-  float v[kUnroll];
-#pragma unroll
-  for (int j = 0; j < kUnroll; ++j) v[j] = __ldg(src[j]);
-#pragma unroll
-  for (int j = 0; j < kUnroll; ++j) {
-    const I i = base + (I)j * blockDim.x;
-    if (i < n) out[i] = payload(v[j], bf16);
-  }
-}
-
-template <int K>
-int prev_gather_launch(const float* table, const int* idx, float* out,
-                  long long n, int k, int bf16, cudaStream_t stream) {
-  const long long per_block = (long long)kThreads * kUnroll;
-  const long long grid = (n + per_block - 1) / per_block;
-  if (grid > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  if (n < (1ll << 31)) {
-    gather_kernel<unsigned, K><<<(unsigned)grid, kThreads, 0, stream>>>(
-        table, idx, out, (unsigned)n, (unsigned)k, bf16);
-  } else {
-    gather_kernel<long long, K><<<(unsigned)grid, kThreads, 0, stream>>>(
-        table, idx, out, n, (long long)k, bf16);
-  }
-  return (int)cudaGetLastError();
-}
-
-#endif
 
 template <int V> struct Vec;
 template <> struct Vec<1> { using T = float; };
 template <> struct Vec<2> { using T = float2; };
 template <> struct Vec<4> { using T = float4; };
-
-// Table reads. STREAM (an ascending gather from a table larger than L2:
-// no SM reads a row again) bypasses L1; otherwise rows go through L1,
-// where neighbouring queries and the rounds of a row share sectors.
-template <bool STREAM>
-__device__ __forceinline__ float ld_row(const float* p) {
-  if constexpr (STREAM) {
-    float v;
-    asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
-    return v;
-  } else {
-    return __ldg(p);
-  }
-}
-template <bool STREAM>
-__device__ __forceinline__ float2 ld_row(const float2* p) {
-  if constexpr (STREAM) {
-    float2 v;
-    asm("ld.global.nc.L1::no_allocate.v2.f32 {%0, %1}, [%2];"
-        : "=f"(v.x), "=f"(v.y)
-        : "l"(p));
-    return v;
-  } else {
-    return __ldg(p);
-  }
-}
-template <bool STREAM>
-__device__ __forceinline__ float4 ld_row(const float4* p) {
-  if constexpr (STREAM) {
-    float4 v;
-    asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-        : "l"(p));
-    return v;
-  } else {
-    return __ldg(p);
-  }
-}
 
 __device__ __forceinline__ float payload_v(float v, int bf16) {
   return payload(v, bf16);
@@ -444,122 +357,84 @@ __device__ __forceinline__ float4 payload_v(float4 v, int bf16) {
 
 // Blocks an SM must hold, which caps the registers: rows of at most 8
 // floats at 32 a thread (the whole SM's 64 warps), wider ones at 64.
-#ifdef GATHER_B8
-template <int K>
-constexpr int kGatherMinBlocks = 8;
-#else
 template <int K>
 constexpr int kGatherMinBlocks = K > 0 && K <= 8 ? 8 : 4;
-#endif
 
 // I: the type of the output offsets (unsigned below 2^31 elements).
 // K: the row width when it is one the tracer uses, 0 for any other (then
 // V = 1). V: floats a load (4 or 2 where the rows' alignment allows).
-// A warp takes groups of 32 consecutive rows, a grid's warps apart. Lane
-// l loads the index of the group's row l (one 128-byte load a group).
-// The group's output, 32*K floats, is cut into 32*K/V pieces of V floats;
-// in round s lane l moves piece s*32 + l: it takes its row's index from
-// the row's lane by a shuffle, loads V floats of the row and stores them
-// beside its neighbours' (each round stores 32 consecutive pieces). All
-// row loads of the group are issued before its first store.
-template <typename I, int K, int V, bool STREAM>
+// Warp w moves the group of 32 rows w*32 .. w*32 + 31. Lane l loads the
+// index of the group's row l (one 128-byte load a group). The group's
+// output, 32*K floats, is cut into 32*K/V pieces of V floats; in round s
+// lane l moves piece s*32 + l: it takes its row's index from the row's
+// lane by a shuffle, loads V floats of the row and stores them beside its
+// neighbours' (each round stores 32 consecutive pieces). All row loads of
+// the group are issued before its first store.
+template <typename I, int K, int V>
 __global__ void __launch_bounds__(kThreads, kGatherMinBlocks<K>)
     gather_rows_kernel(const float* __restrict__ table,
                        const int* __restrict__ idx, float* __restrict__ out,
                        int m, int k_any, int bf16) {
   using T = typename Vec<V>::T;
   const int lane = threadIdx.x & 31;
-  const int n_groups = (m + 31) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  for (int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; g < n_groups;
-       g += n_warps) {
-    const unsigned q0 = (unsigned)g * 32u;
-    const int ix = q0 + lane < (unsigned)m ? __ldg(idx + q0 + lane) : 0;
-    if constexpr (K > 0) {
-      constexpr int P = K / V;  // pieces a row
-      const T* src = reinterpret_cast<const T*>(table);
-      T v[P];
+  const unsigned q0 = (blockIdx.x * (unsigned)blockDim.x + threadIdx.x) &
+                      ~31u;
+  if (q0 >= (unsigned)m) return;
+  const int ix = q0 + lane < (unsigned)m ? __ldg(idx + q0 + lane) : 0;
+  if constexpr (K > 0) {
+    constexpr int P = K / V;  // pieces a row
+    const T* src = reinterpret_cast<const T*>(table);
+    T v[P];
 #pragma unroll
-      for (int s = 0; s < P; ++s) {
-        const int t = s * 32 + lane;
-        const int r = t / P;
-#ifdef GATHER_DIRECT_INDEX
-        const int row = q0 + r < (unsigned)m ? __ldg(idx + q0 + r) : 0;
-#else
-        const int row = __shfl_sync(0xffffffffu, ix, r);
-#endif
-        if (q0 + r < (unsigned)m)
-          v[s] = ld_row<STREAM>(src + (size_t)row * P + (t - r * P));
+    for (int s = 0; s < P; ++s) {
+      const int t = s * 32 + lane;
+      const int r = t / P;
+      const int row = __shfl_sync(0xffffffffu, ix, r);
+      if (q0 + r < (unsigned)m)
+        v[s] = __ldg(src + (size_t)row * P + (t - r * P));
+    }
+    T* dst = reinterpret_cast<T*>(out) + (I)q0 * P;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const int t = s * 32 + lane;
+      if (q0 + t / P < (unsigned)m) dst[t] = payload_v(v[s], bf16);
+    }
+  } else {
+    // run-time width: a row is k pieces of one float, 8 in flight
+    const int k = k_any;
+    float* dst = out + (I)q0 * k;
+    for (int s0 = 0; s0 < k; s0 += 8) {
+      float v[8];
+      int t[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int tu = (s0 + u) * 32 + lane;
+        const int r = tu / k;
+        const int row = __shfl_sync(0xffffffffu, ix, r & 31);
+        t[u] = s0 + u < k && q0 + r < (unsigned)m ? tu : -1;
+        if (t[u] >= 0)
+          v[u] = __ldg(table + (size_t)row * k + (tu - r * k));
       }
-      T* dst = reinterpret_cast<T*>(out) + (I)q0 * P;
 #pragma unroll
-      for (int s = 0; s < P; ++s) {
-        const int t = s * 32 + lane;
-        if (q0 + t / P < (unsigned)m) dst[t] = payload_v(v[s], bf16);
-      }
-    } else {
-      // run-time width: a row is k pieces of one float, 8 in flight
-      const int k = k_any;
-      float* dst = out + (I)q0 * k;
-      for (int s0 = 0; s0 < k; s0 += 8) {
-        float v[8];
-        int t[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int tu = (s0 + u) * 32 + lane;
-          const int r = tu / k;
-          const int row = __shfl_sync(0xffffffffu, ix, r & 31);
-          t[u] = s0 + u < k && q0 + r < (unsigned)m ? tu : -1;
-          if (t[u] >= 0)
-            v[u] = ld_row<STREAM>(table + (size_t)row * k + (tu - r * k));
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (t[u] >= 0) dst[t[u]] = payload(v[u], bf16);
-      }
+      for (int u = 0; u < 8; ++u)
+        if (t[u] >= 0) dst[t[u]] = payload(v[u], bf16);
     }
   }
 }
 
-template <typename I, int K, int V, bool STREAM>
+// One warp a group of 32 rows, 8 groups a block; 64-bit output offsets
+// only where the output reaches 2^31 elements.
+template <int K, int V>
 int gather_launch(const float* table, const int* idx, float* out, int m,
                   int k, int bf16, cudaStream_t stream) {
-  // a persistent grid: at most as many blocks as the card holds at once,
-  // fewer where the groups of 32 rows are fewer than that many warps
-  static const int resident = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gather_rows_kernel<I, K, V, STREAM>, kThreads, 0);
-    return sms * (per_sm > 0 ? per_sm : 1);
-  }();
-  const int groups = (int)(((long long)m + 31) / 32);
-  const int want = (groups + kThreads / 32 - 1) / (kThreads / 32);
-#ifdef GATHER_NO_CAP
-  gather_rows_kernel<I, K, V, STREAM><<<want, kThreads, 0, stream>>>(
-      table, idx, out, m, k, bf16);
-#else
-  gather_rows_kernel<I, K, V, STREAM>
-      <<<want < resident ? want : resident, kThreads, 0, stream>>>(
-          table, idx, out, m, k, bf16);
-#endif
+  const unsigned grid = (unsigned)(((long long)m + kThreads - 1) / kThreads);
+  if ((long long)m * k >= (1ll << 31))
+    gather_rows_kernel<long long, K, V><<<grid, kThreads, 0, stream>>>(
+        table, idx, out, m, k, bf16);
+  else
+    gather_rows_kernel<unsigned, K, V><<<grid, kThreads, 0, stream>>>(
+        table, idx, out, m, k, bf16);
   return (int)cudaGetLastError();
-}
-
-template <int K, int V>
-int gather_offsets(const float* table, const int* idx, float* out, int m,
-                   int k, int bf16, bool streaming, cudaStream_t stream) {
-  const bool wide = (long long)m * k >= (1ll << 31);
-  if (streaming)
-    return wide ? gather_launch<long long, K, V, true>(table, idx, out, m, k,
-                                                       bf16, stream)
-                : gather_launch<unsigned, K, V, true>(table, idx, out, m, k,
-                                                      bf16, stream);
-  return wide ? gather_launch<long long, K, V, false>(table, idx, out, m, k,
-                                                      bf16, stream)
-              : gather_launch<unsigned, K, V, false>(table, idx, out, m, k,
-                                                     bf16, stream);
 }
 
 // A width's route: the widest load that the width and the alignment of
@@ -567,85 +442,37 @@ int gather_offsets(const float* table, const int* idx, float* out, int m,
 // takes the float route).
 template <int K>
 int gather_width(const float* table, const int* idx, float* out, int m,
-                 int k, int bf16, bool streaming, cudaStream_t stream) {
+                 int k, int bf16, cudaStream_t stream) {
   if constexpr (K > 0 && K % 2 == 0) {
     constexpr int V = K % 4 == 0 ? 4 : 2;
     const uintptr_t base =
         reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out);
     if (base % (4 * V) == 0)
-      return gather_offsets<K, V>(table, idx, out, m, k, bf16, streaming,
-                                  stream);
+      return gather_launch<K, V>(table, idx, out, m, k, bf16, stream);
   }
-  return gather_offsets<K, 1>(table, idx, out, m, k, bf16, streaming, stream);
+  return gather_launch<K, 1>(table, idx, out, m, k, bf16, stream);
 }
 
 }  // namespace
 
-#ifdef ROW_GATHER_PREV
 extern "C" int row_gather_launch(const float* table, const int* idx,
-                                 float* out, int n_rows, int m, int k,
-                                 int bf16, int coherent,
-                                 cudaStream_t stream) {
-  const long long n = (long long)m * k;
-  if (n <= 0) return 0;
-  // the tracer's widths: film/throughput, draws, pack, material rows, the
-  // side table of the standard material (13) and of the transparent one
-  // (15 + 5); any other width, the transparent table's own 15 among them,
-  // takes the run-time-width route
-  switch (k) {
-    case 3: return prev_gather_launch<3>(table, idx, out, n, k, bf16, stream);
-    case 5: return prev_gather_launch<5>(table, idx, out, n, k, bf16, stream);
-    case 6: return prev_gather_launch<6>(table, idx, out, n, k, bf16, stream);
-    case 8: return prev_gather_launch<8>(table, idx, out, n, k, bf16, stream);
-    case 13: return prev_gather_launch<13>(table, idx, out, n, k, bf16, stream);
-    case 20: return prev_gather_launch<20>(table, idx, out, n, k, bf16, stream);
-    default: return prev_gather_launch<0>(table, idx, out, n, k, bf16, stream);
-  }
-}
-
-#else
-// coherent: the caller's indices ascend. An ascending gather from a table
-// larger than L2 reads rows that no SM reads again: they bypass L1.
-extern "C" int row_gather_launch(const float* table, const int* idx,
-                                 float* out, int n_rows, int m, int k,
-                                 int bf16, int coherent,
+                                 float* out, int m, int k, int bf16,
                                  cudaStream_t stream) {
   if (m <= 0 || k <= 0) return 0;
-  static const long long l2_bytes = [] {
-    int dev = 0, bytes = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrL2CacheSize, dev);
-    return (long long)bytes;
-  }();
-#if defined(GATHER_L1)
-  const bool streaming = false;
-#elif defined(GATHER_STREAM)
-  const bool streaming = true;
-#else
-  const bool streaming =
-      coherent && (long long)n_rows * k * (long long)sizeof(float) > l2_bytes;
-#endif
   // the tracer's widths: film/throughput, draws, pack, material rows, the
   // side table of the standard material (13) and of the transparent one
   // (15 + 5); any other width, the transparent table's own 15 among them,
   // takes the run-time-width route
-#define GATHER_CASE(K) \
-  case K:              \
-    return gather_width<K>(table, idx, out, m, k, bf16, streaming, stream);
   switch (k) {
-    GATHER_CASE(3)
-    GATHER_CASE(5)
-    GATHER_CASE(6)
-    GATHER_CASE(8)
-    GATHER_CASE(13)
-    GATHER_CASE(20)
-    default:
-      return gather_width<0>(table, idx, out, m, k, bf16, streaming, stream);
+    case 3: return gather_width<3>(table, idx, out, m, k, bf16, stream);
+    case 5: return gather_width<5>(table, idx, out, m, k, bf16, stream);
+    case 6: return gather_width<6>(table, idx, out, m, k, bf16, stream);
+    case 8: return gather_width<8>(table, idx, out, m, k, bf16, stream);
+    case 13: return gather_width<13>(table, idx, out, m, k, bf16, stream);
+    case 20: return gather_width<20>(table, idx, out, m, k, bf16, stream);
+    default: return gather_width<0>(table, idx, out, m, k, bf16, stream);
   }
-#undef GATHER_CASE
 }
-
-#endif
 
 // coherent: the indices of the live (not all-zero) rows ascend.
 // accumulate: add into `out` as it stands instead of into zeros.

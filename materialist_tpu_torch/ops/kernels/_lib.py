@@ -139,7 +139,7 @@ _SIGNATURES = {
                             + [_I] + [_P]),
     "shade_bounce_fwd_launch": [_P] * 8 + [_I] * 3 + [_P],
     "shade_bounce_bwd_launch": [_P] * 11 + [_I] * 3 + [_P],
-    "row_gather_launch": [_P] * 3 + [_I] * 5 + [_P],
+    "row_gather_launch": [_P] * 3 + [_I] * 3 + [_P],
     "row_scatter_add_launch": [_P] * 3 + [_I] * 6 + [_P],
     "compact_sel_launch": [_P] * 4 + [_I] * 2 + [_P],
     "env_sample_dir_launch": [_P] * 8 + [_I] * 3 + [_P],

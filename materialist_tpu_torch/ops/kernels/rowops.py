@@ -7,11 +7,9 @@ reorders built from the two (counterpart of
 scatter, a stable sort with float64 prefix sums. On the card every call
 of either goes through its kernel, whatever the order of the indices.
 ``coherent`` has the JAX package's meaning, the indices of the live rows
-ascend (padding rows carry zeros): ``row_gather`` records it with the
-launch's shape and, from a table larger than L2, streams the rows past
-L1 (the result does not depend on the order), ``row_scatter_add`` takes
-its path without a match and, for rows no other lane shares, without
-atomics.
+ascend (padding rows carry zeros): ``row_gather`` only records it with
+the launch's shape, ``row_scatter_add`` takes its path without a match
+and, for rows no other lane shares, without atomics.
 
 The compaction helpers (``compact_sel``, ``gather_rows_coherent``,
 ``gather_coherent_diff``, ``scatter_add_coherent_diff``,
@@ -36,8 +34,7 @@ def row_gather_plain(table, idx, exact: bool = True):
 def row_gather(table, idx, exact: bool = True, coherent: bool = False):
     """Kernel C: table (N, K) f32; idx (...,) integer in [0, N) →
     (..., K) f32. ``exact=False`` rounds the fetched values to bf16.
-    ``coherent``: the caller's indices ascend (the kernel then streams the
-    rows of a table larger than L2 past L1); a launch is counted under
+    ``coherent``: the caller's indices ascend; a launch is counted under
     (N, K, queries, coherent)."""
     if table.device.type == "cpu":
         return row_gather_plain(table.detach(), idx, exact)
@@ -51,9 +48,8 @@ def row_gather(table, idx, exact: bool = True, coherent: bool = False):
     out = torch.empty((m, k), dtype=torch.float32, device=dev)
     if m:
         _lib.check(_lib.lib().row_gather_launch(
-            tf.data_ptr(), ix.data_ptr(), out.data_ptr(), n, m, k,
-            0 if exact else 1, int(coherent), _lib.stream_ptr(tf)),
-            "row_gather")
+            tf.data_ptr(), ix.data_ptr(), out.data_ptr(), m, k,
+            0 if exact else 1, _lib.stream_ptr(tf)), "row_gather")
         _lib.count_launch("row_gather", (n, k, m, int(coherent)))
     return out.reshape(*idx.shape, k)
 

@@ -97,21 +97,20 @@ def device_summary(prof, wall_ms: float) -> dict:
                      for e in ops])
 
 
-def gather_sector_bytes(idx, k: int, elem_bytes: int = 4,
-                        sector: int = 32) -> int:
+def gather_sector_bytes(idx, k: int, sector: int = 32) -> int:
     """The least bytes device memory moves for the row gather
-    ``out[q] = table[idx[q]]`` from a table of (N, k) ``elem_bytes``-byte
-    elements whose base lies on a sector boundary: each distinct
-    ``sector``-byte sector of the table that a fetched row touches, read
-    once however many queries share it, plus the index and the output,
-    each moved once. The card reads device memory in 32-byte sectors, so
-    a row that straddles a boundary costs two, and rows fetched one in
-    several cost a sector each."""
+    ``out[q] = table[idx[q]]`` from a float32 table (N, k) whose base lies
+    on a sector boundary: each distinct ``sector``-byte sector of the
+    table that a fetched row touches, read once however many queries
+    share it, plus the index and the output, each moved once. The card
+    reads device memory in 32-byte sectors, so a row that straddles a
+    boundary costs two, and rows fetched one in several cost a sector
+    each."""
     flat = idx.reshape(-1)
     m = flat.numel()
     if m == 0:
         return 0
-    row_b = k * elem_bytes
+    row_b = 4 * k
     rows = torch.unique(flat.long())
     first = rows * row_b // sector
     last = (rows * row_b + row_b - 1) // sector

@@ -1,35 +1,27 @@
 #!/usr/bin/env python3
-"""Kernel C (row gather) builds timed in turns on the card.
+"""Kernel C (row gather) of this checkout against another checkout's.
 
-Builds of ``materialist_tpu_torch/csrc/rowops.cu``, loaded side by side:
-
-- ``default``: a row's index loaded once and handed on by a shuffle, the
-  widest loads, neighbouring lanes move neighbouring pieces of the
-  output, one group of 32 rows a warp at a time on a persistent grid,
-  rows through L1 except for an ascending gather from a table larger
-  than L2 (streamed past L1);
-- ``prev`` (``-DROW_GATHER_PREV``): the earlier kernel, one thread an
-  output element, four elements a thread;
-- ``l1`` / ``stream`` (``-DGATHER_L1`` / ``-DGATHER_STREAM``): every
-  table read through L1 / past L1;
-- ``direct`` (``-DGATHER_DIRECT_INDEX``): each lane loads its row's index
-  itself (an L1 broadcast) instead of taking it by a shuffle;
-- ``np`` (``-DGATHER_NO_CAP``): one block for every 8 groups, not a
-  persistent grid;
-- ``b8`` (``-DGATHER_B8``): registers capped at 32 for every width.
-
-At each shape (table rows, width, queries; sorted seeded indices where
-the callers' ascend, uniform ones where not) every build is held
-bitwise to ``row_gather_plain``, then timed twice, in turns (the order
-of ``TURNS``), back to back (L2 warm) and with L2 emptied before each
+``--other ROOT``: builds ``ROOT/materialist_tpu_torch/csrc/rowops.cu``
+(the same C interface, ``row_gather_launch``) beside this checkout's
+library, holds both bitwise to ``row_gather_plain`` and times them in
+turns (other, this, this, other) at 15 shapes of the main path, path
+10 and path 5, back to back (L2 warm) and with L2 emptied before each
 call (``chip_smoke.kernel_device_ms``), beside ``torch.index_select``,
 the byte bound and the sector bound
-(``utils/profiling.py::gather_sector_bytes``).
+(``utils/profiling.py::gather_sector_bytes``). Indices: sorted seeded
+ones where the callers' ascend, uniform ones where not.
 
-    python scripts/time_row_gather.py [--builds default,prev]
+``--bench ROOT [ROOT ...]``: the device ms of every row-gather kernel
+instance in the bench's profiled fresh iteration (``python -m
+materialist_tpu_torch.bench --fresh-iters 1 --trace-every 2
+--skip-relight``), one process a root, in the order given, so that the
+gathers run on the indices of the bench's own compactions.
 
-The log goes to ``chiprun_out/time_row_gather.log`` too. Needs an NVIDIA
-GPU and nvcc.
+    python scripts/time_row_gather.py --other DIR
+    python scripts/time_row_gather.py --bench DIR . . DIR
+
+Needs an NVIDIA GPU and nvcc; the log goes to
+``chiprun_out/time_row_gather.log`` too.
 """
 
 from __future__ import annotations
@@ -42,16 +34,6 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-
-import chip_smoke as cs  # noqa: E402
-
-VARIANTS = {"default": None, "prev": "-DROW_GATHER_PREV",
-            "l1": "-DGATHER_L1", "stream": "-DGATHER_STREAM",
-            "direct": "-DGATHER_DIRECT_INDEX", "np": "-DGATHER_NO_CAP",
-            "b8": "-DGATHER_B8"}
-TURNS = ("prev", "default", "l1", "stream", "direct", "np", "b8",
-         "b8", "np", "direct", "stream", "l1", "default", "prev")
 
 # (table rows, width, queries, ascending): the main path's shapes at 512²
 # and path 10's at 1024² (chip_smoke.py, PR 11), path 5's K = 20
@@ -66,52 +48,46 @@ SHAPES = [
 ]
 
 
-def build_variants(_lib, names):
-    out, procs = {}, []
-    for name in names:
-        flag = VARIANTS[name]
-        if flag is None:
-            continue
-        path = os.path.join(_lib.BUILD, f"rowops_{name}.so")
-        procs.append((name, path, subprocess.Popen(
-            [_lib._nvcc(), *_lib.NVCC_FLAGS, *flag.split(), "-Xptxas", "-v",
-             "-shared", os.path.join(_lib.CSRC, "rowops.cu"), "-o", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, path, p in procs:
-        text, _ = p.communicate()
-        regs = [ln.strip() for ln in text.splitlines()
-                if "gather" in ln or "Used" in ln]
-        cs.log(f"[nvcc {name}] rc {p.returncode}\n" + "\n".join(regs[-60:]))
-        if p.returncode:
-            raise RuntimeError(f"nvcc {name}:\n{text}")
-        lib = ctypes.CDLL(path)
-        lib.row_gather_launch.argtypes = _lib._SIGNATURES["row_gather_launch"]
-        lib.row_gather_launch.restype = ctypes.c_int
-        out[name] = lib
-    if "default" in names:
-        out["default"] = _lib.lib()
-    return out
+def bench_one(root, tag):
+    """The row-gather kernels of the bench's profiled iteration, under
+    the package at ``root``; one line: ``GATHER tag {...}``."""
+    sys.path.insert(0, os.path.abspath(root))
+    from materialist_tpu_torch import bench
+    if not bench.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {bench.__file__}, not under {root}")
+    summary, rows = bench.device_summary, {}
+
+    def wrapped(prof, wall_ms):
+        for e in prof.key_averages():
+            if (e.device_type.name == "CUDA" and "gather" in e.key
+                    and "at::" not in e.key):
+                rows[e.key[:120]] = (e.count, e.device_time_total / 1e3)
+        return summary(prof, wall_ms)
+    bench.device_summary = wrapped
+    bench.main(["--fresh-iters", "1", "--trace-every", "2",
+                "--skip-relight"])
+    print("GATHER", tag, json.dumps(
+        {"total_ms": sum(v[1] for v in rows.values()), "rows": rows}),
+        flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--builds", default=",".join(VARIANTS))
-    args = ap.parse_args()
+def isolated(other_root, log):
+    sys.path.insert(0, REPO)
     import torch
 
+    import chip_smoke as cs
     from materialist_tpu_torch.ops.kernels import _lib
     from materialist_tpu_torch.ops.kernels import rowops
     from materialist_tpu_torch.utils.profiling import gather_sector_bytes
-
-    cs.log(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
-    _lib.build(verbose=True)
-    libs = build_variants(_lib, args.builds.split(","))
+    path = os.path.join(_lib.BUILD, "rowops_other.so")
+    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", os.path.join(
+        other_root, "materialist_tpu_torch", "csrc", "rowops.cu"), "-o",
+        path], check=True)
+    libs = {"other": ctypes.CDLL(path), "this": _lib.lib()}
+    libs["other"].row_gather_launch.argtypes = \
+        _lib._SIGNATURES["row_gather_launch"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
-    rows = []
     for n, k, m, asc in SHAPES:
         tb = torch.randn((n, k), generator=g, device=dev)
         ix = torch.randint(0, n, (m,), generator=g, device=dev,
@@ -120,51 +96,66 @@ def main():
             ix = torch.sort(ix).values
         ref = rowops.row_gather_plain(tb, ix)
         out = torch.empty((m, k), device=dev)
+
+        def runner(lib):
+            def run():
+                _lib.check(lib.row_gather_launch(
+                    tb.data_ptr(), ix.data_ptr(), out.data_ptr(), m, k, 0,
+                    _lib.stream_ptr(tb)), "row_gather")
+            return run
         row = dict(shape=[n, k, m, asc],
                    bound_ms=cs.bound(m * (4 + 8 * k), 0)[0],
                    sector_bound_ms=cs.bound(gather_sector_bytes(ix, k),
-                                            0)[0])
-        def runner(lib):
-            def run():
-                rc = lib.row_gather_launch(tb.data_ptr(), ix.data_ptr(),
-                                           out.data_ptr(), n, m, k, 0, asc,
-                                           _lib.stream_ptr(tb))
-                if rc:
-                    raise RuntimeError(f"launch error {rc}")
-            return run
-        for name, lib in libs.items():
+                                            0)[0],
+                   other=[[], []], this=[[], []])
+        for name in ("other", "this", "this", "other"):
             out.fill_(float("nan"))
-            runner(lib)()
-            torch.cuda.synchronize()
+            runner(libs[name])()
             if not torch.equal(out, ref):
-                cs.fail(f"{name} at {row['shape']} differs from the plain "
-                        "version")
-            row[name] = [[], []]
-        for name in TURNS:
-            if name in libs:
-                for j, flush in enumerate((False, True)):
-                    row[name][j].append(cs.kernel_device_ms(
-                        runner(libs[name]), flush)[0])
+                raise RuntimeError(f"{name} at {row['shape']} differs")
+            for j, flush in enumerate((False, True)):
+                row[name][j].append(cs.kernel_device_ms(runner(libs[name]),
+                                                        flush))
         lib_fn = lambda: torch.index_select(tb, 0, ix)  # noqa: E731
-        row["index_select"] = [[cs.kernel_device_ms(lib_fn, f)[0]]
+        row["index_select"] = [cs.kernel_device_ms(lib_fn, f)
                                for f in (False, True)]
-        rows.append(row)
-        cs.log(json.dumps(row))
+        log(json.dumps(row))
         del tb, ix, ref, out
         torch.cuda.empty_cache()
-    names = list(libs) + ["index_select"]
-    cs.log("shape | bound | sector bound | " + " | ".join(
-        f"{b} warm / L2 emptied" for b in names))
-    for r in rows:
-        cs.log(f"{r['shape']} | {r['bound_ms']:.4f} | "
-               f"{r['sector_bound_ms']:.4f} | " + " | ".join(
-                   " / ".join(",".join(f"{t:.4f}" if t else "none"
-                                       for t in ts) for ts in r[b])
-                   for b in names))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="another checkout's root")
+    ap.add_argument("--bench", nargs="+", help="roots, in turns")
+    ap.add_argument("--bench-one", nargs=2, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.bench_one:
+        return bench_one(*args.bench_one)
+    lines = []
+
+    def log(line):
+        print(line, flush=True)
+        lines.append(line)
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
+    if args.other:
+        isolated(args.other, log)
+    for i, root in enumerate(args.bench or ()):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--bench-one", root, f"{i}:{root}"],
+                           capture_output=True, text=True)
+        found = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("GATHER ")]
+        if p.returncode or not found:
+            raise RuntimeError(f"bench under {root}:\n{p.stdout[-3000:]}"
+                               f"\n{p.stderr[-3000:]}")
+        log(found[-1])
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "time_row_gather.log"),
-              "w") as f:
-        f.write("\n".join(cs.LOG) + "\n")
+              "a") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":

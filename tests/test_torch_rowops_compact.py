@@ -73,10 +73,10 @@ def test_row_gather_matches_jax(n, k, shape, order):
             jnp.float32)))
 
 
-def _sectors_brute(idx, k):
-    """Distinct 32-byte sectors of an (N, k) float32 table that the rows
-    at idx touch, one byte at a time."""
-    return len({(r * k * 4 + b) // 32 for r in np.asarray(idx).ravel()
+def _sectors_brute(idx, k, sector=32):
+    """Distinct sectors of an (N, k) float32 table that the rows at idx
+    touch, one byte at a time."""
+    return len({(r * k * 4 + b) // sector for r in np.asarray(idx).ravel()
                 for b in range(k * 4)})
 
 
@@ -101,13 +101,15 @@ def test_gather_sector_bytes(idx, k, sectors):
 @pytest.mark.parametrize("k", [3, 5, 6, 13, 20])
 def test_gather_sector_bytes_seeded(k):
     """Against the byte-by-byte count on seeded sorted, random and
-    repeated indices."""
+    repeated indices, in 32- and 64-byte sectors."""
     from materialist_tpu_torch.utils.profiling import gather_sector_bytes
     rng = np.random.default_rng(k)
     for order in ("sorted", "random", "repeats"):
         idx = _gather_indices(500, (300,), order, rng)
-        assert gather_sector_bytes(torch.from_numpy(idx), k) == (
-            32 * _sectors_brute(idx, k) + idx.size * (4 + 4 * k)), order
+        for sector in (32, 64):
+            assert gather_sector_bytes(torch.from_numpy(idx), k, sector) == (
+                sector * _sectors_brute(idx, k, sector)
+                + idx.size * (4 + 4 * k)), (order, sector)
     assert gather_sector_bytes(torch.zeros((0,), dtype=torch.int32), k) == 0
 
 
