@@ -25,11 +25,11 @@ The scene's maps are resized to ``--res`` as ``jax.image.resize(...,
 "bilinear")`` resizes them: a triangle filter on half-pixel centres,
 widened when it shrinks (``triangle_matrix``). A missing scene file is an
 error. On the card the compaction caps are probed first, as ``optimize``
-probes them. Diagnostics go to stderr (caps, plan, paths per second, a
-byte model against the H100's memory rate, the card, peak memory,
-launches of one fresh iteration by kernel, the device-busy time of one
-more iteration under ``torch.profiler``, as a share of that profiled
-iteration and of the mean fresh one, and its heaviest kernels); the
+probes them. Diagnostics go to stderr (caps, plan, the card, peak
+memory, launches of one fresh iteration by kernel, the device-busy time
+of one more iteration under ``torch.profiler``, as a share of that
+profiled iteration and of the mean fresh one, its heaviest kernels, and
+its device and idle time by the program's spans); the
 result line goes to stdout before the relight and again, with
 ``relight_fps``, after it.
 """
@@ -76,14 +76,6 @@ PARAMS = ("albedo", "roughness", "metallic", "normal", "envmap")
 LR = 3e-4
 OOM_ATTEMPTS = 3
 RELIGHT_SPP = 64
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-# bench.py's model of a path's traffic: 3 scattering vertices, each with
-# 110 B of records touched 4 times and a 12-channel row gather plus an
-# 8-channel scatter adjoint (96 B); 2 kflop of shading a vertex
-BOUNCES = 3
-REC_BYTES = 110.0
-GATHER_BYTES = 96.0
-FLOPS_PER_VERTEX = 2000.0
 
 
 def log(msg: str) -> None:
@@ -386,25 +378,12 @@ def main(argv=None) -> dict:
             f"pass = {trace_ms:.1f}")
 
     # diagnostics of the fresh step
-    paths = res * res * spp
-    paths_per_s = paths / (fresh_ms / 1e3)
-    bytes_per_s = (paths * BOUNCES * (REC_BYTES * 4 + GATHER_BYTES)
-                   / (fresh_ms / 1e3))
     report = dict(
         card=_card(dev), groups=phase.n_groups, chunk=phase.cfg.chunk,
         replay_blob=phase.cfg.replay_blob, caps=list(cfg.compact_caps),
         cap_util={b: float(f) for b, f in sorted(cap_util.items())},
         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                     if dev.type == "cuda" else None),
-        paths_per_s_M=paths_per_s / 1e6,
-        est_bytes_per_s_G=bytes_per_s / 1e9,
-        # a share of the card's memory rate only for a run on the card
-        est_hbm_roofline_frac=(bytes_per_s / H100_BYTES_PER_S
-                               if dev.type == "cuda" else None),
-        est_tflops=paths * BOUNCES * FLOPS_PER_VERTEX / (fresh_ms / 1e3)
-        / 1e12,
-        model=f"{REC_BYTES:g} B/vertex records x4 + {GATHER_BYTES:g} B row "
-              "gather/scatter, 2 kflop/vertex; H100 HBM3 3.35 TB/s",
         launches=launches, launches_by_shape=launches_by_shape, busy=None,
         relight_launches=None)
     for b, f in report["cap_util"].items():
@@ -429,8 +408,6 @@ def main(argv=None) -> dict:
         "trace_pass_ms": trace_ms,
         "fresh_ms_each": fresh_ms_each,
         "relight_fps": None,
-        "paths_per_s_M": report["paths_per_s_M"],
-        "est_hbm_roofline_frac": report["est_hbm_roofline_frac"],
         "device": report["card"],
     }
     report["result"] = result

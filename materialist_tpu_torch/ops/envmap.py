@@ -21,6 +21,7 @@ import torch
 from materialist_tpu_torch.ops.color import luminance
 from materialist_tpu_torch.ops.kernels import envkernels as ek
 from materialist_tpu_torch.ops.kernels.rowops import row_scatter_add
+from materialist_tpu_torch.utils import profiling as prof
 
 PI = math.pi
 SMALL_ENV_AXIS = 64
@@ -83,8 +84,8 @@ class _LookupBilinearSmall(torch.autograd.Function):
         dv = dv[..., None]
         taps = ((v0i, u0i, (1 - du) * (1 - dv)), (v0i, u1i, du * (1 - dv)),
                 (v1i, u0i, (1 - du) * dv), (v1i, u1i, du * dv))
-        idx_all = torch.cat([(vi * w + ui).reshape(-1) for vi, ui, _ in taps])
-        cot_all = torch.cat([(wt * cot).reshape(-1, c) for _, _, wt in taps])
+        idx_all = prof.cat([(vi * w + ui).reshape(-1) for vi, ui, _ in taps])
+        cot_all = prof.cat([(wt * cot).reshape(-1, c) for _, _, wt in taps])
         g = row_scatter_add(cot_all, idx_all.to(torch.int32), h * w,
                             exact=True)
         return g.reshape(h, w, c), None, None, None, None

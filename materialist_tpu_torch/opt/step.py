@@ -27,6 +27,16 @@ from materialist_tpu_torch.render.scene import GBuffer, Materials
 from materialist_tpu_torch.render.shader import (RenderConfig, _check_cfg,
                                                  _shade_chunk, n_chunks_of,
                                                  trace_step_records)
+from materialist_tpu_torch.utils.profiling import span
+
+_TRACE_ALL = span("phase.trace_all")
+_STEP = span("phase.step")
+_SHADE = span("phase.shade")        # the image: every chunk, no graph
+_LOSS = span("phase.loss")          # the loss and its direct cotangents
+_ADJOINT = span("phase.adjoint")    # each chunk again, under autograd
+_PULLBACK = span("phase.pullback")  # maps' cotangents to the parameters
+_SNAPSHOT = span("phase.snapshot")  # the parameters the loss saw
+_UPDATE = span("phase.update")
 
 
 class PhaseStep(NamedTuple):
@@ -81,12 +91,13 @@ def make_phase_step(cfg_full: RenderConfig, cam, gbuf: GBuffer,
     n_chunks = n_chunks_of(cfg)
 
     def trace_all(params, extra, key):
-        with torch.no_grad():
-            mats, env = maps_of(params, extra)
-        keys = rng.split(key, n_groups)
-        recs = [trace_step_records(keys[g], cfg, cam, gbuf, mats, env)
-                for g in range(n_groups)]
-        return recs, keys
+        with _TRACE_ALL:
+            with torch.no_grad():
+                mats, env = maps_of(params, extra)
+            keys = rng.split(key, n_groups)
+            recs = [trace_step_records(keys[g], cfg, cam, gbuf, mats, env)
+                    for g in range(n_groups)]
+            return recs, keys
 
     def value_and_grad(params, extra, records):
         recs, keys = records
@@ -102,7 +113,7 @@ def make_phase_step(cfg_full: RenderConfig, cam, gbuf: GBuffer,
         def chunk_keys(g):
             return rng.split(keys[g], n_chunks)
 
-        with torch.no_grad():
+        with _SHADE, torch.no_grad():
             img = None
             for g in range(n_groups):
                 ck = chunk_keys(g)
@@ -111,27 +122,31 @@ def make_phase_step(cfg_full: RenderConfig, cam, gbuf: GBuffer,
                                       *maps_l)
                     img = im if img is None else img + im
             img = img / (n_chunks * n_groups)
-        img_leaf = img.detach().requires_grad_(True)
-        loss, aux = loss_of(maps_l, img_leaf, extra)
-        diff = [l for l in leaves if l.requires_grad]
-        gs = torch.autograd.grad(loss, [img_leaf] + diff, allow_unused=True)
-        ct_img = gs[0] / (n_chunks * n_groups)
-        for leaf, g in zip(diff, gs[1:]):
-            leaf.grad = torch.zeros_like(leaf) if g is None else g
-        for g in range(n_groups):
-            ck = chunk_keys(g)
-            for c in range(n_chunks):
-                out = _shade_chunk(ck[c], recs[g][c], cfg, cam, gbuf,
-                                   *maps_l)
-                if out.requires_grad:
-                    out.backward(ct_img)
-        pulled = [(f, leaf.grad) for f, leaf in zip(fields, leaves)
-                  if f.requires_grad]
-        if pulled:
-            torch.autograd.backward([f for f, _ in pulled],
-                                    [g for _, g in pulled])
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in plist]
+        with _LOSS:
+            img_leaf = img.detach().requires_grad_(True)
+            loss, aux = loss_of(maps_l, img_leaf, extra)
+            diff = [l for l in leaves if l.requires_grad]
+            gs = torch.autograd.grad(loss, [img_leaf] + diff,
+                                     allow_unused=True)
+            ct_img = gs[0] / (n_chunks * n_groups)
+            for leaf, g in zip(diff, gs[1:]):
+                leaf.grad = torch.zeros_like(leaf) if g is None else g
+        with _ADJOINT:
+            for g in range(n_groups):
+                ck = chunk_keys(g)
+                for c in range(n_chunks):
+                    out = _shade_chunk(ck[c], recs[g][c], cfg, cam, gbuf,
+                                       *maps_l)
+                    if out.requires_grad:
+                        out.backward(ct_img)
+        with _PULLBACK:
+            pulled = [(f, leaf.grad) for f, leaf in zip(fields, leaves)
+                      if f.requires_grad]
+            if pulled:
+                torch.autograd.backward([f for f, _ in pulled],
+                                        [g for _, g in pulled])
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in plist]
         return loss.detach(), aux, grads
 
     def make_step(opt):
@@ -140,15 +155,19 @@ def make_phase_step(cfg_full: RenderConfig, cam, gbuf: GBuffer,
         of the parameters the loss was computed with (SaveBest records
         it, not the updated ones)."""
         def step(params, opt_state, extra, records):
-            loss, aux, grads = value_and_grad(params, extra, records)
-            plist = param_list(params)
-            if isinstance(params, torch.nn.Module):
-                pre = {k: v.detach().clone()
-                       for k, v in params.state_dict().items()}
-            else:
-                pre = {k: v.detach().clone() for k, v in params.items()}
-            opt.step(plist, grads, opt_state)
-            return loss, aux, pre
+            with _STEP:
+                loss, aux, grads = value_and_grad(params, extra, records)
+                plist = param_list(params)
+                with _SNAPSHOT:
+                    if isinstance(params, torch.nn.Module):
+                        pre = {k: v.detach().clone()
+                               for k, v in params.state_dict().items()}
+                    else:
+                        pre = {k: v.detach().clone()
+                               for k, v in params.items()}
+                with _UPDATE:
+                    opt.step(plist, grads, opt_state)
+                return loss, aux, pre
         return step
 
     return PhaseStep(cfg=cfg, plan=plan, n_groups=n_groups,

@@ -24,6 +24,7 @@ from materialist_tpu_torch.ops import brdf as B
 from materialist_tpu_torch.ops.kernels.rowops import (row_gather_diff,
                                                       row_scatter_add)
 from materialist_tpu_torch.render.scene import Materials
+from materialist_tpu_torch.utils import profiling as prof
 
 
 class BSDF(NamedTuple):
@@ -65,9 +66,9 @@ class _ReuseGather(torch.autograd.Function):
 
 def _pack(mats: Materials):
     n = mats.albedo.shape[0] * mats.albedo.shape[1]
-    return torch.cat([mats.albedo.reshape(n, 3), mats.roughness.reshape(n, 1),
-                      mats.metallic.reshape(n, 1), mats.normal.reshape(n, 3)],
-                     dim=-1)
+    return prof.cat([mats.albedo.reshape(n, 3), mats.roughness.reshape(n, 1),
+                     mats.metallic.reshape(n, 1), mats.normal.reshape(n, 3)],
+                    dim=-1)
 
 
 def _unpack(blob):
@@ -119,9 +120,9 @@ def transparent(mats: Materials, bg, mask, spec_trans: float, ior: float,
     pos3], so a bounce fetches it by one row gather (kernel C)."""
     n = mats.albedo.shape[0] * mats.albedo.shape[1]
     bg_flat = bg.reshape(n, 3)
-    table = torch.cat([_pack(mats), bg_flat,
-                       mask.reshape(n, 1).to(torch.float32),
-                       positions.reshape(n, 3)], dim=-1)
+    table = prof.cat([_pack(mats), bg_flat,
+                      mask.reshape(n, 1).to(torch.float32),
+                      positions.reshape(n, 3)], dim=-1)
     h_img, w_img = mats.albedo.shape[0], mats.albedo.shape[1]
 
     def reuse(idx, primal):

@@ -21,6 +21,11 @@ from materialist_tpu_torch.render.denoise import atrous_denoise
 from materialist_tpu_torch.render.scene import GBuffer, Materials
 from materialist_tpu_torch.render.shader import (RenderConfig,
                                                  render_with_bsdf)
+from materialist_tpu_torch.utils.profiling import span
+
+_PASS = span("forward.pass")
+_RENDER = span("forward.render")
+_DENOISE = span("forward.denoise")
 
 
 def _envmap_on(envmap, device):
@@ -38,17 +43,21 @@ def render_averaged(gbuf: GBuffer, cam: Camera, mats: Materials, envmap,
     ``gbuf``. Continuous in-pixel film sampling is on by default (box
     halfwidth 0.5). The average is taken on the device; one image comes
     back to the host at the end."""
-    cfg = RenderConfig(spp=spp, chunk=min(chunk, spp),
-                       film_jitter=film_jitter)
-    envmap = _envmap_on(envmap, gbuf.dist.device)
-    acc = None
-    for i in range(n_iter):
-        img = render_with_bsdf(rng.key(seed + i), cfg, cam, gbuf, mats,
-                               envmap, bsdf)
-        if denoise:
-            img = atrous_denoise(img, albedo=mats.albedo, normal=mats.normal)
-        acc = img if acc is None else acc + img
-    return (acc / n_iter).cpu().numpy()
+    with _PASS:
+        cfg = RenderConfig(spp=spp, chunk=min(chunk, spp),
+                           film_jitter=film_jitter)
+        envmap = _envmap_on(envmap, gbuf.dist.device)
+        acc = None
+        for i in range(n_iter):
+            with _RENDER:
+                img = render_with_bsdf(rng.key(seed + i), cfg, cam, gbuf,
+                                       mats, envmap, bsdf)
+            if denoise:
+                with _DENOISE:
+                    img = atrous_denoise(img, albedo=mats.albedo,
+                                         normal=mats.normal)
+            acc = img if acc is None else acc + img
+        return (acc / n_iter).cpu().numpy()
 
 
 def render_rolling(gbuf: GBuffer, cam: Camera, mats: Materials, envmap,

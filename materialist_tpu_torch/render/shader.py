@@ -41,6 +41,23 @@ from materialist_tpu_torch.ops.kernels.shadebounce import shade_bounce_fused
 from materialist_tpu_torch.render import bsdf as bsdf_mod
 from materialist_tpu_torch.render import screenspace as ss
 from materialist_tpu_torch.render.scene import GBuffer, Materials
+from materialist_tpu_torch.utils import profiling as prof
+
+# the stages of a chunk's trace and shade (utils/profiling.py: spans)
+_TRACE_CHUNK = prof.span("trace.chunk")
+_TRACE_BOUNCE = prof.Numbered("trace.bounce")
+_TRACE_PRIMARY = prof.span("trace.primary")    # bounce 0's state
+_TRACE_FETCH = prof.span("trace.fetch")        # the side table's row gather
+_TRACE_DRAWS = prof.span("trace.draws")        # the estimator's streams
+_TRACE_SAMPLE = prof.span("trace.sample")      # directions, pdfs, env taps
+_TRACE_MARCH = prof.span("trace.march")
+_TRACE_RECORDS = prof.span("trace.records")    # the bounce's stored layouts
+_TRACE_COMPACT = prof.span("trace.compact")    # the live rays' partition
+_SHADE_CHUNK = prof.span("shade.chunk")
+_SHADE_BOUNCE = prof.Numbered("shade.bounce")
+_SHADE_FETCH = prof.span("shade.fetch")        # the vertex's rows and wo
+_SHADE_EVAL = prof.span("shade.eval")          # the bounce's radiance
+_SHADE_FILM = prof.span("shade.film")          # onto the film, the mean
 
 
 class RenderConfig(NamedTuple):
@@ -200,8 +217,8 @@ def _primary_state(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     cu = ub.to(torch.float32) + 0.5 + ju
     cv = vb.to(torch.float32) + 0.5 + jv
 
-    geo = torch.cat([gbuf.dist[..., None], gbuf.normal_geo,
-                     gbuf.valid[..., None].to(torch.float32)], dim=-1)
+    geo = prof.cat([gbuf.dist[..., None], gbuf.normal_geo,
+                    gbuf.valid[..., None].to(torch.float32)], dim=-1)
     pad = torch.nn.functional.pad(geo.permute(2, 0, 1)[None], (1, 1, 1, 1),
                                   mode="replicate")[0].permute(1, 2, 0)
     pad = pad.reshape(-1, 5).detach()
@@ -332,174 +349,205 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
     """Decision pass of one chunk: sample all stochastic choices and
     resolve visibility. Returns one BounceRecord per bounce."""
     _check_cfg(cfg)
-    h, w = gbuf.dist.shape
-    n = h * w
-    off, n_rows = _film_base(film, h, w)
-    n_loc = n_rows * w
-    rows = slice(off, off + n_loc)
-    s = cfg.chunk
-    dev = gbuf.dist.device
-    if bsdf is None:
-        bsdf = bsdf_mod.disney(mats)
-    envmap = envmap.detach()
-    env_sampler = em.build_sampler(envmap)
-    nrm_geo_flat = gbuf.normal_geo.reshape(n, 3)
-    if tables is None:
-        tables = march_tables(cfg, gbuf)
-    table = bsdf.table.detach()
-    k_blob = table.shape[-1]
-    # one side table, one row gather per bounce: [blob | dist hi, lo |
-    # geometric normal]; hit positions reconstruct from the march depth
-    mdist = tables.dist.reshape(n)
-    dist_hi = mdist.to(torch.bfloat16).to(torch.float32)
-    combo = torch.cat([table, dist_hi[:, None], (mdist - dist_hi)[:, None],
-                       nrm_geo_flat], dim=-1)
+    with _TRACE_CHUNK:
+        h, w = gbuf.dist.shape
+        n = h * w
+        off, n_rows = _film_base(film, h, w)
+        n_loc = n_rows * w
+        rows = slice(off, off + n_loc)
+        s = cfg.chunk
+        dev = gbuf.dist.device
+        if bsdf is None:
+            bsdf = bsdf_mod.disney(mats)
+        envmap = envmap.detach()
+        env_sampler = em.build_sampler(envmap)
+        nrm_geo_flat = gbuf.normal_geo.reshape(n, 3)
+        if tables is None:
+            tables = march_tables(cfg, gbuf)
+        table = bsdf.table.detach()
+        k_blob = table.shape[-1]
+        # one side table, one row gather per bounce: [blob | dist hi, lo |
+        # geometric normal]; hit positions reconstruct from the march depth
+        mdist = tables.dist.reshape(n)
+        dist_hi = mdist.to(torch.bfloat16).to(torch.float32)
+        combo = prof.cat([table, dist_hi[:, None], (mdist - dist_hi)[:, None],
+                          nrm_geo_flat], dim=-1)
 
-    idx = torch.arange(off, off + n_loc, dtype=torch.int32,
-                       device=dev).expand(s, n_loc)
-    wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
-    fused = _fused_shade_eligible(cfg, bsdf, envmap)
-    eh, ew = envmap.shape[0], envmap.shape[1]
-    do_march, do_pair = _make_march_fns(cfg, cam, tables)
+        idx = torch.arange(off, off + n_loc, dtype=torch.int32,
+                           device=dev).expand(s, n_loc)
+        wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
+        fused = _fused_shade_eligible(cfg, bsdf, envmap)
+        eh, ew = envmap.shape[0], envmap.shape[1]
+        do_march, do_pair = _make_march_fns(cfg, cam, tables)
 
-    # wavefront compaction state: base_alive gates the live rays of the
-    # current bounce's arrays; film_idx maps each row of a compacted array
-    # back to its (sample, pixel) slot of the chunk grid; pending holds
-    # the extras of the next bounce's record
-    m0 = s * n_loc
-    do_compact = bool(cfg.compact_caps)
-    base_alive = (gbuf.valid.reshape(n)[rows].expand(s, n_loc)
-                  if do_compact or fused else None)
-    film_idx = None
-    pending = None
-
-    def caps_abs(b_next):
-        frac = cfg.compact_caps[min(b_next - 1, len(cfg.compact_caps) - 1)]
-        cap = int(-(-(frac * m0) // 1024) * 1024)
-        return max(min(cap, m0), 1024)
-
-    records = []
-    for b in range(cfg.max_depth - 1):
-        k_lobe, k_uv, k_nee = rng.split(rng.fold_in(key, b), 3)
-        rec_blob = rec_nrm = None
-        extras = pending
+        # wavefront compaction state: base_alive gates the live rays of the
+        # current bounce's arrays; film_idx maps each row of a compacted array
+        # back to its (sample, pixel) slot of the chunk grid; pending holds
+        # the extras of the next bounce's record
+        m0 = s * n_loc
+        do_compact = bool(cfg.compact_caps)
+        base_alive = (gbuf.valid.reshape(n)[rows].expand(s, n_loc)
+                      if do_compact or fused else None)
+        film_idx = None
         pending = None
-        if b == 0 and cfg.film_jitter > 0.0:
-            nrm_geo, pos, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s,
-                                                      film)
-            if base_alive is not None:
-                base_alive = base_alive & valid0
-            blob = table[rows]
-        elif b == 0:
-            blob = table[rows]
-            nrm_geo = nrm_geo_flat[rows]
-            pos = gbuf.position.reshape(n, 3)[rows].expand(s, n_loc, 3)
-        else:
-            fetched = row_gather(combo, idx)
-            blob = fetched[..., :k_blob]
-            pos = _pos_from_idx(cam, idx, fetched[..., k_blob]
-                                + fetched[..., k_blob + 1])
-            nrm_geo = fetched[..., k_blob + 2:k_blob + 5]
-            if cfg.replay_blob:
-                rec_blob = (blob[..., :5] if fused else blob).to(
-                    torch.bfloat16)
-                rec_nrm = (nrm_geo.to(torch.bfloat16)
-                           if cfg.use_mesh_normal else None)
-        nrm = (nrm_geo if cfg.use_mesh_normal
-               else _normalize9(blob[..., 5:8]))
 
-        u1 = _stream_uniform(cfg, k_lobe, s, n_loc, 1, dev)
-        u2 = _stream_uniform(cfg, k_uv, s, n_loc, 2, dev)
-        u_nee = (_stream_uniform(cfg, k_nee, s, n_loc, 2, dev) if cfg.nee
-                 else None)
-        if film_idx is not None:
-            # compacted bounce: the streams are drawn on the full grid
-            # (the uncompacted estimator's values) and the surviving rays'
-            # draws pulled through in one gather (film_idx ascends)
-            ug = torch.cat([u1, u2] + ([u_nee] if cfg.nee else []), -1)
-            up = gather_rows_coherent(ug.reshape(m0, -1), film_idx)[None]
-            u1 = up[..., 0:1]
-            u2 = up[..., 1:3]
-            u_nee = up[..., 3:5] if cfg.nee else None
-        wi = bsdf.sample_dirs(blob, u1[..., 0], u2, wo, nrm)
-        pos = pos.expand(wi.shape)
-        if cfg.nee:
-            wi_e, pdf_e = em.sample_dir(env_sampler, u_nee)
-            hit, shadowed = do_pair(pos, wi, wi_e.expand(wi.shape))
-            uv_e = em.bilinear_coords(wi_e, eh, ew)
-        else:
-            hit = do_march(pos, wi)
-            shadowed = torch.zeros(wi.shape[:-1], dtype=torch.bool,
-                                   device=dev)
-        rec_pdf_at = (em.pdf_dir(env_sampler, wi).to(torch.bfloat16)
-                      if cfg.nee else None)
-        rec_wi = wi.to(torch.bfloat16)
-        uv_b = em.bilinear_coords(wi, eh, ew)
-        if cfg.nee:
-            rec_uvi = torch.stack([uv_e[0], uv_e[1], uv_b[0], uv_b[1]], -1)
-            rec_uvf = torch.stack([uv_e[2], uv_e[3], uv_b[2], uv_b[3]], -1)
-        else:
-            rec_uvi = torch.stack([uv_b[0], uv_b[1]], -1)
-            rec_uvf = torch.stack([uv_b[2], uv_b[3]], -1)
-        rec_uvi = rec_uvi.to(torch.int16)
-        rec_uvf = rec_uvf.to(torch.bfloat16)
+        def caps_abs(b_next):
+            frac = cfg.compact_caps[min(b_next - 1, len(cfg.compact_caps) - 1)]
+            cap = int(-(-(frac * m0) // 1024) * 1024)
+            return max(min(cap, m0), 1024)
 
-        if fused:
-            # the fused shade's packed detached inputs, assembled once;
-            # the march chain keeps the exact f32 lobe direction
-            win = _normalize9(rec_wi.to(torch.float32))
-            tgt = win.shape[:-1]
-            gate_nee = (base_alive & ~shadowed).to(torch.float32)
-            gate_miss = (base_alive & ~hit.hit).to(torch.float32)
-            rec_nrmf = nrm.expand(tgt + (3,)).to(torch.float16)
-            rec_aux = torch.cat([win, gate_nee[..., None],
-                                 gate_miss[..., None]], -1).to(torch.bfloat16)
-            rec_recb = torch.cat(
-                [pdf_e.to(torch.bfloat16), rec_pdf_at,
-                 wi_e.to(torch.bfloat16), rec_uvf,
-                 rec_uvi.to(torch.bfloat16)], -1)
-            records.append(BounceRecord(shadowed, hit.hit, hit.idx,
-                                        blob=rec_blob, nrm=rec_nrmf,
-                                        aux=rec_aux, recb=rec_recb,
-                                        extras=extras))
-        else:
-            records.append(BounceRecord(
-                shadowed, hit.hit, hit.idx, rec_blob, rec_nrm,
-                wi_e.to(torch.bfloat16) if cfg.nee else None,
-                pdf_e.to(torch.bfloat16) if cfg.nee else None,
-                rec_pdf_at, rec_wi, rec_uvi, rec_uvf, extras=extras))
+        records = []
+        for b in range(cfg.max_depth - 1):
+            with _TRACE_BOUNCE[b]:
+                k_lobe, k_uv, k_nee = rng.split(rng.fold_in(key, b), 3)
+                rec_blob = rec_nrm = None
+                extras = pending
+                pending = None
+                if b == 0:
+                    with _TRACE_PRIMARY:
+                        blob = table[rows]
+                        if cfg.film_jitter > 0.0:
+                            nrm_geo, pos, wo, valid0 = _primary_state(
+                                key, cfg, cam, gbuf, s, film)
+                            if base_alive is not None:
+                                base_alive = base_alive & valid0
+                        else:
+                            nrm_geo = nrm_geo_flat[rows]
+                            pos = gbuf.position.reshape(n, 3)[rows].expand(
+                                s, n_loc, 3)
+                else:
+                    with _TRACE_FETCH:
+                        fetched = row_gather(combo, idx)
+                        blob = fetched[..., :k_blob]
+                        pos = _pos_from_idx(cam, idx, fetched[..., k_blob]
+                                            + fetched[..., k_blob + 1])
+                        nrm_geo = fetched[..., k_blob + 2:k_blob + 5]
+                        if cfg.replay_blob:
+                            rec_blob = (blob[..., :5] if fused else blob).to(
+                                torch.bfloat16)
+                            rec_nrm = (nrm_geo.to(torch.bfloat16)
+                                       if cfg.use_mesh_normal else None)
+                nrm = (nrm_geo if cfg.use_mesh_normal
+                       else _normalize9(blob[..., 5:8]))
 
-        if do_compact and b < cfg.max_depth - 2:
-            # stable-partition the live rays (hit and alive) of this
-            # bounce; bounce b+1 runs on the compacted prefix only. One
-            # gather pulls their continuation state through:
-            # [vertex idx | film hi, lo | exact f32 lobe direction]
-            cap = caps_abs(b + 1)
-            sel, count = compact_sel((hit.hit & base_alive).reshape(-1), cap)
-            if film_idx is None:
-                film_src = torch.arange(m0, dtype=torch.int32,
-                                        device=dev).reshape(s, n_loc)
-            else:
-                film_src = film_idx[None]
-            f_hi, f_lo = _f32_exact_split(film_src)
-            pack_src = torch.cat(
-                [hit.idx.to(torch.float32)[..., None], f_hi[..., None],
-                 f_lo[..., None], wi], -1)
-            pack = gather_rows_coherent(pack_src.reshape(-1, 6), sel)
-            idx = pack[:, 0].to(torch.int32)[None]              # (1, cap)
-            film_idx = _f32_exact_join(pack[:, 1], pack[:, 2])  # (cap,)
-            wo = -pack[None, :, 3:6]
-            base_alive = (torch.arange(cap, dtype=torch.int32, device=dev)
-                          < count)[None]                        # (1, cap)
-            pending = (sel, count, idx[0], film_idx)
-        else:
-            idx = hit.idx
-            wo = -wi
-            if fused:
-                # a dead ray stays dead: the packed gates of later
-                # bounces depend on this alive chain
-                base_alive = base_alive & hit.hit
-    return tuple(records)
+                with _TRACE_DRAWS:
+                    u1 = _stream_uniform(cfg, k_lobe, s, n_loc, 1, dev)
+                    u2 = _stream_uniform(cfg, k_uv, s, n_loc, 2, dev)
+                    u_nee = (_stream_uniform(cfg, k_nee, s, n_loc, 2, dev)
+                             if cfg.nee else None)
+                    if film_idx is not None:
+                        # compacted bounce: the streams are drawn on the full
+                        # grid (the uncompacted estimator's values) and the
+                        # surviving rays' draws pulled through in one gather
+                        # (film_idx ascends)
+                        ug = prof.cat([u1, u2] + ([u_nee] if cfg.nee else []),
+                                      -1)
+                        up = gather_rows_coherent(ug.reshape(m0, -1),
+                                                  film_idx)[None]
+                        u1 = up[..., 0:1]
+                        u2 = up[..., 1:3]
+                        u_nee = up[..., 3:5] if cfg.nee else None
+                with _TRACE_SAMPLE:
+                    wi = bsdf.sample_dirs(blob, u1[..., 0], u2, wo, nrm)
+                    pos = pos.expand(wi.shape)
+                    if cfg.nee:
+                        wi_e, pdf_e = em.sample_dir(env_sampler, u_nee)
+                with _TRACE_MARCH:
+                    if cfg.nee:
+                        hit, shadowed = do_pair(pos, wi, wi_e.expand(wi.shape))
+                    else:
+                        hit = do_march(pos, wi)
+                        shadowed = torch.zeros(wi.shape[:-1], dtype=torch.bool,
+                                               device=dev)
+                with _TRACE_SAMPLE:
+                    if cfg.nee:
+                        uv_e = em.bilinear_coords(wi_e, eh, ew)
+                        pdf_at = em.pdf_dir(env_sampler, wi)
+                    uv_b = em.bilinear_coords(wi, eh, ew)
+                with _TRACE_RECORDS:
+                    records.append(_bounce_record(
+                        cfg, fused, base_alive, hit, shadowed, nrm, wi,
+                        (wi_e, pdf_e, uv_e, pdf_at) if cfg.nee else None, uv_b,
+                        rec_blob, rec_nrm, extras))
+
+                with _TRACE_COMPACT:
+                    if do_compact and b < cfg.max_depth - 2:
+                        # stable-partition the live rays (hit and alive) of
+                        # this bounce; bounce b+1 runs on the compacted prefix
+                        # only. One gather pulls their continuation state
+                        # through: [vertex idx | film hi, lo | exact f32 lobe
+                        # direction]
+                        cap = caps_abs(b + 1)
+                        sel, count = compact_sel(
+                            (hit.hit & base_alive).reshape(-1), cap)
+                        if film_idx is None:
+                            film_src = torch.arange(
+                                m0, dtype=torch.int32,
+                                device=dev).reshape(s, n_loc)
+                        else:
+                            film_src = film_idx[None]
+                        f_hi, f_lo = _f32_exact_split(film_src)
+                        pack_src = prof.cat(
+                            [hit.idx.to(torch.float32)[..., None],
+                             f_hi[..., None], f_lo[..., None], wi], -1)
+                        pack = gather_rows_coherent(pack_src.reshape(-1, 6),
+                                                    sel)
+                        idx = pack[:, 0].to(torch.int32)[None]      # (1, cap)
+                        film_idx = _f32_exact_join(pack[:, 1],
+                                                   pack[:, 2])      # (cap,)
+                        wo = -pack[None, :, 3:6]
+                        base_alive = (torch.arange(cap, dtype=torch.int32,
+                                                   device=dev)
+                                      < count)[None]                # (1, cap)
+                        pending = (sel, count, idx[0], film_idx)
+                    else:
+                        idx = hit.idx
+                        wo = -wi
+                        if fused:
+                            # a dead ray stays dead: the packed gates of later
+                            # bounces depend on this alive chain
+                            base_alive = base_alive & hit.hit
+        return tuple(records)
+
+
+def _bounce_record(cfg, fused, base_alive, hit, shadowed, nrm, wi, nee, uv_b,
+                   rec_blob, rec_nrm, extras) -> BounceRecord:
+    """One bounce's record in its stored layouts: the fused shade's packed
+    detached inputs, or the generic fields. ``nee``: (wi_e, pdf_e, uv_e,
+    pdf_at) of the NEE sample, or None."""
+    rec_wi = wi.to(torch.bfloat16)
+    if nee is not None:
+        wi_e, pdf_e, uv_e, pdf_at = nee
+        rec_pdf_at = pdf_at.to(torch.bfloat16)
+        rec_uvi = torch.stack([uv_e[0], uv_e[1], uv_b[0], uv_b[1]], -1)
+        rec_uvf = torch.stack([uv_e[2], uv_e[3], uv_b[2], uv_b[3]], -1)
+    else:
+        rec_pdf_at = None
+        rec_uvi = torch.stack([uv_b[0], uv_b[1]], -1)
+        rec_uvf = torch.stack([uv_b[2], uv_b[3]], -1)
+    rec_uvi = rec_uvi.to(torch.int16)
+    rec_uvf = rec_uvf.to(torch.bfloat16)
+    if fused:
+        # the fused shade's packed detached inputs, assembled once; the
+        # march chain keeps the exact f32 lobe direction
+        win = _normalize9(rec_wi.to(torch.float32))
+        tgt = win.shape[:-1]
+        gate_nee = (base_alive & ~shadowed).to(torch.float32)
+        gate_miss = (base_alive & ~hit.hit).to(torch.float32)
+        rec_nrmf = nrm.expand(tgt + (3,)).to(torch.float16)
+        rec_aux = prof.cat([win, gate_nee[..., None], gate_miss[..., None]],
+                           -1).to(torch.bfloat16)
+        rec_recb = prof.cat(
+            [pdf_e.to(torch.bfloat16), rec_pdf_at, wi_e.to(torch.bfloat16),
+             rec_uvf, rec_uvi.to(torch.bfloat16)], -1)
+        return BounceRecord(shadowed, hit.hit, hit.idx, blob=rec_blob,
+                            nrm=rec_nrmf, aux=rec_aux, recb=rec_recb,
+                            extras=extras)
+    return BounceRecord(
+        shadowed, hit.hit, hit.idx, rec_blob, rec_nrm,
+        wi_e.to(torch.bfloat16) if nee is not None else None,
+        pdf_e.to(torch.bfloat16) if nee is not None else None,
+        rec_pdf_at, rec_wi, rec_uvi, rec_uvf, extras=extras)
 
 
 def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
@@ -508,142 +556,171 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
     """Replay pass of one chunk: the differentiable radiance (n_rows, w, 3)
     of the film rows of ``film`` (default: all of them) from the trace
     records (same key ⇒ the same primary state)."""
-    h, w = gbuf.dist.shape
-    n = h * w
-    off, n_rows = _film_base(film, h, w)
-    n_loc = n_rows * w
-    rows = slice(off, off + n_loc)
-    s = cfg.chunk
-    dev = gbuf.dist.device
-    if bsdf is None:
-        bsdf = bsdf_mod.disney(mats)
-    nrm_table = gbuf.normal_geo.reshape(n, 3).detach()
-    valid = gbuf.valid.reshape(n)[rows]
-    idx = torch.arange(off, off + n_loc, dtype=torch.int32,
-                       device=dev).expand(s, n_loc)
-    wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
-    alive = valid.expand(s, n_loc)
-    throughput = torch.ones((s, n_loc, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((s, n_loc, 3), dtype=torch.float32, device=dev)
+    with _SHADE_CHUNK:
+        h, w = gbuf.dist.shape
+        n = h * w
+        off, n_rows = _film_base(film, h, w)
+        n_loc = n_rows * w
+        rows = slice(off, off + n_loc)
+        s = cfg.chunk
+        dev = gbuf.dist.device
+        if bsdf is None:
+            bsdf = bsdf_mod.disney(mats)
+        nrm_table = gbuf.normal_geo.reshape(n, 3).detach()
+        valid = gbuf.valid.reshape(n)[rows]
+        idx = torch.arange(off, off + n_loc, dtype=torch.int32,
+                           device=dev).expand(s, n_loc)
+        wo = gbuf.wo.reshape(n, 3)[rows].expand(s, n_loc, 3)
+        alive = valid.expand(s, n_loc)
+        throughput = torch.ones((s, n_loc, 3), dtype=torch.float32,
+                                device=dev)
+        radiance = torch.zeros((s, n_loc, 3), dtype=torch.float32,
+                               device=dev)
 
-    if cfg.sky_background:
-        sky = em.lookup_bilinear(envmap, -gbuf.wo.reshape(n, 3)[rows])
-        radiance = radiance + torch.where(valid[None, :, None], 0.0,
-                                          sky[None])
+        if cfg.sky_background:
+            sky = em.lookup_bilinear(envmap, -gbuf.wo.reshape(n, 3)[rows])
+            radiance = radiance + torch.where(valid[None, :, None], 0.0,
+                                              sky[None])
 
-    def prev_dir(field, sel):
-        """wo of a bounce: minus the previous bounce's recorded lobe
-        direction, pulled through the partition ``sel`` of a compacted
-        bounce and normalized after the bf16 round trip."""
-        w_prev = field.to(torch.float32)
-        if sel is not None:
-            w_prev = gather_rows_coherent(w_prev.reshape(-1, 3), sel)[None]
-        return -_normalize9(w_prev)
+        def prev_dir(field, sel):
+            """wo of a bounce: minus the previous bounce's recorded lobe
+            direction, pulled through the partition ``sel`` of a compacted
+            bounce and normalized after the bf16 round trip."""
+            w_prev = field.to(torch.float32)
+            if sel is not None:
+                w_prev = gather_rows_coherent(w_prev.reshape(-1, 3),
+                                              sel)[None]
+            return -_normalize9(w_prev)
 
-    use_fused = _fused_shade_eligible(cfg, bsdf, envmap)
-    m0 = s * n_loc
-    film_rad = None   # (m0, 3) radiance of the compacted bounces
-    for b in range(cfg.max_depth - 1):
-        rec = records[b]
-        packed = rec.aux is not None
-        if use_fused != packed:
-            raise ValueError("trace records do not match the shade mode")
-        sel = None
-        if rec.extras is not None:
-            # compacted bounce: the throughput chain follows the stable
-            # partition through a differentiable gather; everything else
-            # is a read of the compacted records
-            sel, count, vtx_idx, film_pos = rec.extras
-            cap = sel.shape[0]
-            throughput = gather_coherent_diff(
-                throughput.reshape(-1, 3), sel)[None]          # (1, cap, 3)
-            idx = vtx_idx[None]
-            alive = (torch.arange(cap, dtype=torch.int32, device=dev)
-                     < count)[None]
-            if film_rad is None:
-                film_rad = torch.zeros((m0, 3), dtype=torch.float32,
-                                       device=dev)
+        use_fused = _fused_shade_eligible(cfg, bsdf, envmap)
+        m0 = s * n_loc
+        film_rad = None   # (m0, 3) radiance of the compacted bounces
+        for b in range(cfg.max_depth - 1):
+            with _SHADE_BOUNCE[b]:
+                rec = records[b]
+                packed = rec.aux is not None
+                if use_fused != packed:
+                    raise ValueError(
+                        "trace records do not match the shade mode")
+                with _SHADE_FETCH:
+                    sel = None
+                    if rec.extras is not None:
+                        # compacted bounce: the throughput chain follows
+                        # the stable partition through a differentiable
+                        # gather; everything else is a read of the
+                        # compacted records
+                        sel, count, vtx_idx, film_pos = rec.extras
+                        cap = sel.shape[0]
+                        throughput = gather_coherent_diff(
+                            throughput.reshape(-1, 3), sel)[None]
+                        idx = vtx_idx[None]
+                        alive = (torch.arange(cap, dtype=torch.int32,
+                                              device=dev) < count)[None]
+                        if film_rad is None:
+                            film_rad = torch.zeros((m0, 3),
+                                                   dtype=torch.float32,
+                                                   device=dev)
 
-        if sel is not None and not packed:
-            wo = prev_dir(records[b - 1].wi, sel)
-        if b == 0 and cfg.film_jitter > 0.0:
-            nrm_geo, _, wo, valid0 = _primary_state(key, cfg, cam, gbuf, s,
-                                                    film)
-            blob = bsdf.table[rows]
-            alive = alive & valid0
-        elif b == 0:
-            blob = bsdf.table[rows]
-            nrm_geo = nrm_table[rows]
-        elif rec.blob is not None and bsdf.gather_reuse is not None:
-            # rows fetched by the trace: free forward, C′ adjoint
-            blob = bsdf.gather_reuse(idx, rec.blob.to(torch.float32))
-            nrm_geo = (rec.nrm.to(torch.float32)
-                       if rec.nrm is not None and not packed else None)
-        else:
-            blob = bsdf.gather(idx)
-            nrm_geo = None if packed else row_gather(nrm_table, idx)
+                    if sel is not None and not packed:
+                        wo = prev_dir(records[b - 1].wi, sel)
+                    if b == 0 and cfg.film_jitter > 0.0:
+                        nrm_geo, _, wo, valid0 = _primary_state(
+                            key, cfg, cam, gbuf, s, film)
+                        blob = bsdf.table[rows]
+                        alive = alive & valid0
+                    elif b == 0:
+                        blob = bsdf.table[rows]
+                        nrm_geo = nrm_table[rows]
+                    elif rec.blob is not None and \
+                            bsdf.gather_reuse is not None:
+                        # rows fetched by the trace: free forward, C′
+                        # adjoint
+                        blob = bsdf.gather_reuse(idx,
+                                                 rec.blob.to(torch.float32))
+                        nrm_geo = (rec.nrm.to(torch.float32)
+                                   if rec.nrm is not None and not packed
+                                   else None)
+                    else:
+                        blob = bsdf.gather(idx)
+                        nrm_geo = (None if packed
+                                   else row_gather(nrm_table, idx))
+                    if packed:
+                        # wo is not recorded: the previous bounce's win
+                        # record gives it (b = 0: the primary wo)
+                        tgt = rec.aux.shape[:-1]
+                        if b > 0:
+                            wo_d = prev_dir(records[b - 1].aux[..., 0:3],
+                                            sel)
+                        else:
+                            wo_d = wo.expand(tgt + (3,))
 
-        if packed:
-            # wo is not recorded: the previous bounce's win record gives
-            # it (b = 0: the primary wo)
-            tgt = rec.aux.shape[:-1]
-            if b > 0:
-                wo_d = prev_dir(records[b - 1].aux[..., 0:3], sel)
-            else:
-                wo_d = wo.expand(tgt + (3,))
-            auxf = torch.cat([wo_d.to(torch.bfloat16), rec.aux], -1)
-            throughput, contrib_b = shade_bounce_fused(
-                envmap, blob[..., :5].expand(tgt + (5,)),
-                throughput.expand(tgt + (3,)), rec.nrm, auxf, rec.recb)
-        else:
-            nrm = (nrm_geo if cfg.use_mesh_normal
-                   else _normalize9(blob[..., 5:8]))
-            uvi = rec.uvi.to(torch.int32)
-            uvf = rec.uvf.to(torch.float32)
-            if cfg.nee:
-                wi_e = rec.wi_e.to(torch.float32)
-                pdf_e = rec.pdf_e.to(torch.float32)
-                le = em.lookup_bilinear_at(envmap, uvi[..., 0], uvi[..., 1],
-                                           uvf[..., 0], uvf[..., 1])
-                f_e, pdf_b_at_e = bsdf.eval(blob, idx, wi_e, wo, nrm)
-                w_mis = pdf_e / (pdf_e + pdf_b_at_e.detach() + 1e-9)
-                contrib = throughput * f_e / (pdf_e + 1e-9) * w_mis * le
-                contrib_b = torch.where((alive & ~rec.shadowed)[..., None],
-                                        contrib, 0.0)
-            else:
-                contrib_b = 0.0
-            wi = _normalize9(rec.wi.to(torch.float32))
-            f_b, pdf_b = bsdf.eval(blob, idx, wi, wo, nrm)
-            pdf_b = pdf_b.detach()
-            weight = bsdf.weight(f_b, pdf_b)
-            o = 2 if cfg.nee else 0
-            le_miss = em.lookup_bilinear_at(
-                envmap, uvi[..., o], uvi[..., o + 1], uvf[..., o],
-                uvf[..., o + 1])
-            w_mis_b = (pdf_b / (pdf_b + rec.pdf_at.to(torch.float32) + 1e-9)
-                       if cfg.nee else 1.0)
-            contrib_b = contrib_b + torch.where(
-                (alive & ~rec.hit)[..., None],
-                throughput * weight * w_mis_b * le_miss, 0.0)
-            throughput = throughput * weight
-            wo = -wi
+                with _SHADE_EVAL:
+                    if packed:
+                        auxf = prof.cat([wo_d.to(torch.bfloat16), rec.aux],
+                                        -1)
+                        throughput, contrib_b = shade_bounce_fused(
+                            envmap, blob[..., :5].expand(tgt + (5,)),
+                            throughput.expand(tgt + (3,)), rec.nrm, auxf,
+                            rec.recb)
+                    else:
+                        throughput, contrib_b, wo = _shade_generic(
+                            cfg, bsdf, envmap, rec, blob, idx, nrm_geo, wo,
+                            alive, throughput)
 
-        if sel is not None:
-            # contributions return to their film slots through a
-            # differentiable scatter-add into the running buffer, in place
-            # (padding rows carry exact zeros: their gates are dead)
-            film_rad = scatter_add_coherent_into(
-                film_rad, contrib_b.reshape(-1, 3), film_pos)
-        else:
-            radiance = radiance + contrib_b
-        alive = alive & rec.hit
-        idx = rec.idx
+                with _SHADE_FILM:
+                    if sel is not None:
+                        # contributions return to their film slots through
+                        # a differentiable scatter-add into the running
+                        # buffer, in place (padding rows carry exact zeros:
+                        # their gates are dead)
+                        film_rad = scatter_add_coherent_into(
+                            film_rad, contrib_b.reshape(-1, 3), film_pos)
+                    else:
+                        radiance = radiance + contrib_b
+                alive = alive & rec.hit
+                idx = rec.idx
 
-    if film_rad is not None:
-        radiance = radiance + film_rad.reshape(s, n_loc, 3)
-    img = torch.mean(radiance, dim=0)
-    return torch.nan_to_num(img, nan=0.0, posinf=0.0,
-                            neginf=0.0).reshape(n_rows, w, 3)
+        with _SHADE_FILM:
+            if film_rad is not None:
+                radiance = radiance + film_rad.reshape(s, n_loc, 3)
+            img = torch.mean(radiance, dim=0)
+            return torch.nan_to_num(img, nan=0.0, posinf=0.0,
+                                    neginf=0.0).reshape(n_rows, w, 3)
+
+
+def _shade_generic(cfg, bsdf, envmap, rec, blob, idx, nrm_geo, wo, alive,
+                   throughput):
+    """One bounce of the unfused shade from its generic record: (new
+    throughput, contribution, next wo)."""
+    nrm = (nrm_geo if cfg.use_mesh_normal
+           else _normalize9(blob[..., 5:8]))
+    uvi = rec.uvi.to(torch.int32)
+    uvf = rec.uvf.to(torch.float32)
+    if cfg.nee:
+        wi_e = rec.wi_e.to(torch.float32)
+        pdf_e = rec.pdf_e.to(torch.float32)
+        le = em.lookup_bilinear_at(envmap, uvi[..., 0], uvi[..., 1],
+                                   uvf[..., 0], uvf[..., 1])
+        f_e, pdf_b_at_e = bsdf.eval(blob, idx, wi_e, wo, nrm)
+        w_mis = pdf_e / (pdf_e + pdf_b_at_e.detach() + 1e-9)
+        contrib = throughput * f_e / (pdf_e + 1e-9) * w_mis * le
+        contrib_b = torch.where((alive & ~rec.shadowed)[..., None],
+                                contrib, 0.0)
+    else:
+        contrib_b = 0.0
+    wi = _normalize9(rec.wi.to(torch.float32))
+    f_b, pdf_b = bsdf.eval(blob, idx, wi, wo, nrm)
+    pdf_b = pdf_b.detach()
+    weight = bsdf.weight(f_b, pdf_b)
+    o = 2 if cfg.nee else 0
+    le_miss = em.lookup_bilinear_at(
+        envmap, uvi[..., o], uvi[..., o + 1], uvf[..., o], uvf[..., o + 1])
+    w_mis_b = (pdf_b / (pdf_b + rec.pdf_at.to(torch.float32) + 1e-9)
+               if cfg.nee else 1.0)
+    contrib_b = contrib_b + torch.where(
+        (alive & ~rec.hit)[..., None],
+        throughput * weight * w_mis_b * le_miss, 0.0)
+    return throughput * weight, contrib_b, -wi
 
 
 def n_chunks_of(cfg: RenderConfig) -> int:

@@ -14,7 +14,11 @@ import math
 
 import torch
 
+from materialist_tpu_torch.utils.profiling import RNG_VALUES, count, span
+
 _M = 0xFFFFFFFF
+_BITS = span("rng.bits")     # the hash of a draw's counts, on its device
+_KEYS = span("rng.keys")     # split and fold_in: a few counts on the host
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -47,28 +51,32 @@ def _words(k: torch.Tensor):
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: (num, 2) keys from counts (0, i)."""
-    k1, k2 = _words(k)
-    cnt = torch.arange(num, dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(cnt), cnt)
-    return torch.stack([b1, b2], dim=-1)
+    with _KEYS:
+        k1, k2 = _words(k)
+        cnt = torch.arange(num, dtype=torch.int64)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(cnt), cnt)
+        return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the count pair (0, data)."""
-    k1, k2 = _words(k)
-    d = torch.tensor([int(data) & _M], dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
-    return torch.cat([b1, b2])
+    with _KEYS:
+        k1, k2 = _words(k)
+        d = torch.tensor([int(data) & _M], dtype=torch.int64)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+        return torch.cat([b1, b2])
 
 
 def bits(k: torch.Tensor, shape, device=None) -> torch.Tensor:
     """32 random bits per element (int64 holding uint32), row-major
     counts as ``iota_2x32_shape``; bits = hash₁ ⊕ hash₂."""
-    k1, k2 = _words(k)
-    n = math.prod(shape)
-    cnt = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, cnt >> 32, cnt & _M)
-    return (b1 ^ b2).reshape(shape)
+    with _BITS:
+        k1, k2 = _words(k)
+        n = math.prod(shape)
+        count(RNG_VALUES, n)
+        cnt = torch.arange(n, dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32(k1, k2, cnt >> 32, cnt & _M)
+        return (b1 ^ b2).reshape(shape)
 
 
 def uniform(k: torch.Tensor, shape, device=None, minval: float = 0.0,

@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
-"""Where one inverse step, or one forward pass, of the PyTorch/CUDA package
-spends its time.
+"""Where one unit of a benchmark cell spends its time, by the program's
+spans: the operator's view of ``perfbench`` (PERF.md §5).
 
 Run on a machine with one NVIDIA GPU, from the root of a checkout:
 
-    python3 scripts/profile_torch_step.py            # the inverse step
-    python3 scripts/profile_torch_step.py --forward  # one relight pass
+    python3 scripts/profile_torch_step.py --workload raw1024.inverse
+    python3 scripts/profile_torch_step.py --workload cli512.relight
 
-It builds an envmap phase step (``opt/step.py::make_phase_step``) on the
-in-repo photo_e2e scene at 512² × 64 spp, chunk 4, max_depth 4, without
-and with wavefront compaction (caps from ``probe_compact_caps``), runs
-each once to warm up, and then times, in the order plain, compacted,
-compacted, plain: the trace and the step on the host clock (ending in a
-synchronise), the device-busy time from ``torch.profiler`` (the sum of
-the device time of every kernel), the number of kernels launched, and
-the ten kernels that take the most device time. One JSON line per run;
-the card's name and power limit first.
+It builds the cell as ``perfbench/run.py`` does, with the ``Loop`` of its
+traffic's ``perfbench/loops/<loop>.py``, whose set-up runs the traffic's
+first units and so warms every shape. Then, one JSON line each:
 
-``--forward`` takes one 64-spp pass of ``render/forward.py::
-render_averaged`` on the same scene (chunk 8, film jitter 0.5, the scene's
-own envmap) instead, the render and the denoiser apart: after a warm-up,
-twice under the profiler and twice without.
+* ``unit``: one unit without the profiler, its host ms, and the spans
+  the program closed in it;
+* ``span_cost``: the host ns of one span with no profiler recording (a
+  nest of ``--span-reps`` spans under a root), and that times the unit's
+  spans as a share of the unit;
+* five units under ``torch.profiler``: a first one, which warms the
+  profiler up, then units with the program's ranges and without them, in
+  the order with, without, without, with: the unit's host ms under the
+  profiler (``wall_ms``), busy ms, device operations and
+  ``utils/profiling.py::device_summary``'s ``ranges`` (device ms and
+  operations by innermost span) and ``idle_by_range`` (idle ms by the
+  span the host was in). A
+  unit "without" clears torch's Python-side profiler flag while it runs,
+  so the spans open no range; the profiler records as before.
+
+The card's name and power limit come first.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -36,128 +44,101 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def forward_pass(torch, chip_smoke):
-    """One 64-spp relight pass: render and denoise, each timed alone."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from materialist_tpu_torch import rng
-    from materialist_tpu_torch.render.denoise import atrous_denoise
-    from materialist_tpu_torch.render.shader import (RenderConfig,
-                                                     render_with_bsdf)
-    from materialist_tpu_torch.utils.profiling import device_summary
-    cam, gbuf, mats, env = chip_smoke.photo_scene(torch, torch.device("cuda"))
-    cfg = RenderConfig(spp=64, chunk=8, film_jitter=0.5)
-
-    def one(label, profiled):
-        out = {"run": label}
-        img = None
-        for part in ("render", "denoise"):
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) \
-                if profiled else None
-            torch.cuda.synchronize()
-            if prof is not None:
-                prof.start()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                if part == "render":
-                    img = render_with_bsdf(rng.key(1), cfg, cam, gbuf, mats,
-                                           env)
-                else:
-                    atrous_denoise(img, albedo=mats.albedo,
-                                   normal=mats.normal)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            out[part] = {"ms": ms}
-            if prof is not None:
-                prof.stop()
-                out[part].update(device_summary(prof, ms))
-        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        return out
-
-    one("warm-up", False)
-    for label, profiled in (("profiled", True), ("profiled", True),
-                            ("no profiler", False), ("no profiler", False)):
-        torch.cuda.reset_peak_memory_stats()
-        print(json.dumps(one(label, profiled)), flush=True)
+@contextlib.contextmanager
+def ranges_off():
+    """The program's spans open no profiler range meanwhile."""
+    import torch.autograd.profiler as aprof
+    aprof._is_profiler_enabled = False
+    try:
+        yield
+    finally:
+        aprof._is_profiler_enabled = True
 
 
-def main():
+def spans_closed(profiling, before):
+    """Spans closed since ``before = profiling.totals()``."""
+    return sum(c - before.get(n, (0, 0.0))[0]
+               for n, (c, _) in profiling.totals().items())
+
+
+def span_cost_ns(profiling, reps):
+    """Host ns of one span, with no profiler recording."""
+    root, inner = profiling.span("t.cost_root"), profiling.span("t.cost")
+    with root:
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            with inner:
+                pass
+        return (time.perf_counter_ns() - t0) / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True,
+                    help="a cell of BENCHMARK.json")
+    ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--span-reps", type=int, default=200_000)
+    args = ap.parse_args(argv)
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--forward", action="store_true",
-                    help="profile one forward (relight) pass instead")
-    args = ap.parse_args()
+    from materialist_tpu_torch.utils import profiling
+    from perfbench import run
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available")
-    import chip_smoke
-    from materialist_tpu_torch import rng
-    from materialist_tpu_torch.ops.color import linear_to_srgb
-    from materialist_tpu_torch.opt import schedules
-    from materialist_tpu_torch.opt.step import make_phase_step
-    from materialist_tpu_torch.render.shader import (RenderConfig,
-                                                     probe_compact_caps)
-    from materialist_tpu_torch.utils.profiling import device_summary
-
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    if args.forward:
-        return forward_pass(torch, chip_smoke)
+    bench = run.load_json("BENCHMARK.json")
+    cell = run.cell_of(bench, args.workload)
+    conf = run.load_json("perfbench", "configs", f"{cell['config']}.json")
+    traffic = run.load_json("perfbench", "traffic",
+                            f"{cell['traffic']}.json")
     dev = torch.device("cuda")
-    cam, gbuf, mats, env = chip_smoke.photo_scene(torch, dev)
-    gt = linear_to_srgb(torch.rand((512, 512, 3), device=dev,
-                                   generator=torch.Generator(dev)
-                                   .manual_seed(0)))
-    base = RenderConfig(spp=64, chunk=4, film_jitter=0.5)
-    caps = probe_compact_caps(rng.key(99), base, cam, gbuf, mats,
-                              torch.ones_like(env))
-    print(f"compact_caps {caps}", flush=True)
+    loop_mod = importlib.import_module(f"perfbench.loops.{traffic['loop']}")
+    loop = loop_mod.Loop(conf, traffic, args.seed, dev, run.log)
+    i = loop.next
 
-    def loss_of(maps, img, extra):
-        return torch.mean((linear_to_srgb(img) - gt) ** 2), None
+    torch.cuda.synchronize()
+    before = profiling.totals()
+    t0 = time.perf_counter()
+    loop.unit(i)
+    torch.cuda.synchronize()
+    unit_ms = (time.perf_counter() - t0) * 1e3
+    n_spans = spans_closed(profiling, before)
+    print(json.dumps({"unit": loop.unit_name, "host_ms": unit_ms,
+                      "spans": n_spans}), flush=True)
+    ns = span_cost_ns(profiling, args.span_reps)
+    print(json.dumps({"span_cost": {
+        "ns_per_span": ns, "spans_per_unit": n_spans,
+        "share_of_unit": n_spans * ns / (unit_ms * 1e6)}}), flush=True)
 
-    def one(cfg, label, prof):
-        params = {"envmap": env.clone().requires_grad_()}
-        phase = make_phase_step(cfg, cam, gbuf,
-                                lambda p, extra: (extra, p["envmap"]),
-                                loss_of)
-        opt = schedules.adam_plain(1e-3)
-        state = opt.init(list(params.values()))
-        step = phase.make_step(opt)
+    for k, with_ranges in enumerate((True, True, False, False, True)):
+        i += 1
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        recs = phase.trace_all(params, mats, rng.key(1))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step(params, state, mats, recs)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        out = {"run": label, "trace_ms": (t1 - t0) * 1e3,
-               "step_ms": (t2 - t1) * 1e3,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        if prof is not None:
-            prof.stop()
-            out.update(device_summary(prof, (t2 - t0) * 1e3))
-        return out
-
-    variants = {"plain": base, "compacted": base._replace(compact_caps=caps)}
-    for label in ("plain", "compacted"):
-        one(variants[label], label + " (warm-up)", None)
-    for label in ("plain", "compacted", "compacted", "plain"):
-        torch.cuda.reset_peak_memory_stats()
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.start()
-        print(json.dumps(one(variants[label], label, prof)), flush=True)
-    # the same four without the profiler, whose hooks slow the host
-    for label in ("plain", "compacted", "compacted", "plain"):
-        torch.cuda.reset_peak_memory_stats()
-        print(json.dumps(one(variants[label], label + " (no profiler)",
-                             None)), flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with contextlib.nullcontext() if with_ranges else ranges_off():
+                loop.unit(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        s = profiling.device_summary(prof, wall_ms)
+        ranges = dict(sorted(s["ranges"].items(),
+                             key=lambda kv: -kv[1]["device_ms"]))
+        idle = dict(sorted(s["idle_by_range"].items(),
+                           key=lambda kv: -kv[1]))
+        print(json.dumps({
+            "profiled": k or "warm-up", "ranges_on": with_ranges,
+            "wall_ms": wall_ms,
+            "busy_ms": s["busy_ms"], "device_ops": s["device_ops"],
+            "port_kernels_ms": s["port_kernels_ms"],
+            "ranges_device_ms": sum(r["device_ms"] for n, r in ranges.items()
+                                    if n != profiling.OUTSIDE),
+            "idle_ms": sum(idle.values()), "ranges": ranges,
+            "idle_by_range": idle, "top": s["top"]}), flush=True)
 
 
 if __name__ == "__main__":

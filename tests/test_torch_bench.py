@@ -17,7 +17,8 @@ package's ``bench.py`` on the CPU.
   its maximum (its sign settled) the updates agree within 1e-3 of the
   learning rate;
 - ``main`` on the CPU at 32² prints a last line with every key of the
-  result line and no ``vs_baseline``;
+  result line and no ``vs_baseline``, nor any rate from assumed constants
+  (``ASSUMED``);
 - a missing scene file raises: there is no synthetic fallback;
 - the material adjoint's cotangent rows (what ``_ReuseGather.backward``
   scatters, kernel C′) are exactly zero for a vertex whose march missed
@@ -59,8 +60,10 @@ torch.set_num_threads(2)
 RES = 32
 RESULT_KEYS = {"metric", "value", "unit", "amortized_ms_per_iter",
                "trace_every", "trace_pass_ms", "fresh_ms_each",
-               "relight_fps", "paths_per_s_M", "est_hbm_roofline_frac",
-               "device"}
+               "relight_fps", "device"}
+# rates of an assumed byte and operation model over the host's time
+ASSUMED = ("paths_per_s_M", "est_hbm_roofline_frac", "est_tflops",
+           "est_bytes_per_s_G")
 
 
 def jax_resize(x, res):
@@ -187,10 +190,11 @@ def test_main_prints_the_result_line(capsys):
     assert last["unit"] == "ms" and last["trace_every"] == 2
     assert len(last["fresh_ms_each"]) == 1
     for key in ("value", "amortized_ms_per_iter", "trace_pass_ms",
-                "relight_fps", "paths_per_s_M"):
+                "relight_fps"):
         assert np.isfinite(last[key]) and last[key] > 0, key
-    # a CPU run states no device rate
-    assert last["device"] == "cpu" and last["est_hbm_roofline_frac"] is None
+    assert last["device"] == "cpu"
+    for key in ASSUMED:
+        assert key not in last and key not in report, key
     # the headline was printed before the relight, without relight_fps
     first = json.loads(lines[-2])
     assert first["relight_fps"] is None and first["value"] == last["value"]
