@@ -34,9 +34,15 @@ minutes on an NVIDIA H100, the kernels' build included). It
    place. The adjoint's envmap gradient is held to a float64 sum of the
    same taps, at those shapes and on a one-hot envmap (every NEE sample
    on one texel) and a 64x64 one, and the whole backward is timed against
-   the contraction it replaced. This runs after the main path, whose
-   launches by shape it prints first, and path 10, on neither of which
-   the bounce's backward may run that contraction;
+   the contraction it replaced. The draws (``threefry_draw``, one kernel
+   in three modes) must equal their int64 plain versions bit for bit at
+   the 1024² bench's and the 512² relight's streams and at ragged sizes,
+   and ``randint`` and ``bernoulli`` on the card the CPU's; each mode is
+   timed beside its byte bound and its plain version, and must launch on
+   its own path, counted by mode from its launch shape: the lattice on
+   the main path, the bits and uniforms in path 8c. This runs after
+   the main path, whose launches by shape it prints first, and path 10,
+   on neither of which the bounce's backward may run that contraction;
 3. drives the paths, each with the launch counters set to 0 just before
    and read just after:
    - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
@@ -131,6 +137,11 @@ FLOPS_PER_MARCH_STEP = 24      # project + compare + updates, per step
 FLOPS_SHADE_FWD = 260          # per vertex: 2 BRDF evals, 2 fetches, MIS
 FLOPS_SHADE_BWD = 520          # per vertex: forward replay + adjoint
 FLOPS_ENV_TAPS = 60            # per vertex: 2 looks x (4 weights, 12 taps)
+# per hashed value: Threefry-2x32's 2 + 20 x 3 + 5 x 2 adds, rotations and
+# xors, and the xor of its two words, each counted once
+OPS_THREEFRY = 73
+# threefry_draw's modes, the fourth field of its launch shape
+DRAW_MODES = ("bits", "uniform", "lattice")
 LOG = []
 TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
 # kernels of the gradient and of compaction: no launch on a path without
@@ -310,7 +321,8 @@ def main():
              "10: the bounce's backward left the kernel")
     log("_denv_from_dle: 0 calls on paths 1 and 10 (B′ sums d_env)")
     kernels = check_kernels(torch, _lib, caps, by_shape, bench_info)
-    launches = {"main": main_launches, "path 10": bench_launches,
+    launches = {"main": {**main_launches, **draw_launches(by_shape)},
+                "path 10": bench_launches,
                 "nee_false": nee_false_path(torch, _lib),
                 "mip": mip_path(torch, _lib),
                 "standalone": standalone_lookup(torch, _lib)}
@@ -321,7 +333,8 @@ def main():
     forward_agreements(torch)
     cli_run()
     launches["path 7"] = predict_path(torch, _lib)
-    launches["path 8"], launches["path 8 generate"] = train_path(torch, _lib)
+    (launches["path 8"], launches["path 8 generate"],
+     launches["path 8c"]) = train_path(torch, _lib)
     launches["path 9"] = multi_device_path(torch, _lib, caps, main_launches)
 
     for k in kernels:
@@ -332,7 +345,7 @@ def main():
                  f"({k['path']})")
     for k in kernels:
         k["launches_by_path"] = {
-            p: launches[p][k["counter_name"]]
+            p: launches[p].get(k["counter_name"])
             for p in ("path 4", "path 5", "path 6", "path 7", "path 8",
                       "path 8 generate", "path 9", "path 10")}
         k.pop("counter_name")
@@ -601,6 +614,16 @@ def ulp_distance(torch, a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def draw_launches(by_shape) -> dict:
+    """``threefry_draw``'s launches by mode (``DRAW_MODES``) in launches
+    by shape, under the names ``threefry_draw <mode>``."""
+    out = {f"threefry_draw {m}": 0 for m in DRAW_MODES}
+    for (name, shape), n in by_shape.items():
+        if name == "threefry_draw":
+            out[f"threefry_draw {DRAW_MODES[shape[3]]}"] += n
+    return out
+
+
 def check_kernels(torch, _lib, caps, by_shape, bench_info):
     """Every kernel against its plain version at the main path's shapes
     (``by_shape``, on a trace chunk of the photo scene recorded at
@@ -638,7 +661,8 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         b_ms, b_by = bound(bytes_moved, flops)
         out.append(dict(name=name, route="cuda",
                         source="materialist_tpu_torch/csrc/" + src,
-                        replaces=rel + replaces, launches=0,
+                        replaces=rel + replaces if replaces else None,
+                        launches=0,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                         device_ms=ms.device_ms,
@@ -1591,6 +1615,82 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
               path=path, ms_256=times[256], library_ms_256=libs[256],
               device_ms_256=times[256].device_ms,
               library_device_ms_256=libs[256].device_ms)
+
+    # ---- the draws (threefry_draw; it replaces no TPU kernel: the JAX
+    # package draws through XLA's threefry): each mode bit for bit against
+    # its int64 plain version on the card, keys from split and fold_in;
+    # the lattice at the 1024² bench's streams (8 samples over 1 or 2
+    # dims), the 512² relight's and ragged sizes, the uniforms at the
+    # i.i.d. branch's stream, the bits at the device trainer's batch, and
+    # randint and bernoulli against the CPU's
+    k_d = rng.fold_in(rng.split(rng.key(SEED + 5), 3)[2], 991)
+
+    def same_bits(got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        if got.is_floating_point():
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return torch.equal(got, want)
+
+    def draw_row(what, run, plain, ok, hashed, samples, nbytes):
+        row = dict(what=what, hashed=hashed, samples=samples, ok=ok)
+        if hashed >= 2 ** 18:
+            row.update(ms=dev_ms(run), plain_ms=cuda_ms(plain, iters=5))
+            row["device_ms"] = row["ms"].device_ms
+            row["bound_ms"], _ = bound(hashed * samples * nbytes,
+                                       hashed * OPS_THREEFRY)
+            log(f"  threefry_draw {what}: kernel {row['ms']:.4f} ms "
+                f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} "
+                f"ms, bound {row['bound_ms']:.4f} ms")
+        if not ok:
+            log(f"  threefry_draw {what}: differs from its plain version")
+        return row
+
+    lat_rows = []
+    for s_d, n_d, dims in ((8, BENCH_RES ** 2, 2), (8, BENCH_RES ** 2, 1),
+                           (8, 512 * 512, 2), (8, 512 * 512, 1),
+                           (8, 1023, 1), (3, 1025, 2), (1, 1, 2)):
+        gens = shader._LATTICE_G[dims]
+        lat_rows.append(draw_row(
+            f"lattice ({s_d}, {n_d}, {dims})",
+            lambda: rng.lattice(k_d, s_d, n_d, gens, dev),
+            lambda: rng.lattice_plain(k_d, s_d, n_d, gens, dev),
+            same_bits(rng.lattice(k_d, s_d, n_d, gens, dev),
+                      rng.lattice_plain(k_d, s_d, n_d, gens, dev)),
+            n_d * dims, s_d, 4))
+    uni_rows, bit_rows = [], []
+    for shp in ((8, BENCH_RES ** 2, 2), (8, 512 * 512, 2), (1023,), (3, 7),
+                (1025, 3)):
+        uni_rows.append(draw_row(
+            f"uniform {shp}", lambda: rng.uniform(k_d, shp, dev),
+            lambda: rng.uniform_plain(k_d, shp, dev),
+            same_bits(rng.uniform(k_d, shp, dev),
+                      rng.uniform_plain(k_d, shp, dev)),
+            math.prod(shp), 1, 4))
+        bit_rows.append(draw_row(
+            f"bits {shp}", lambda: rng.bits(k_d, shp, dev),
+            lambda: rng.bits_plain(k_d, shp, dev),
+            same_bits(rng.bits(k_d, shp, dev), rng.bits_plain(k_d, shp, dev)),
+            math.prod(shp), 1, 8))
+    k_t = rng.split(rng.key(SEED + 6))[1]
+    host_ok = (torch.equal(rng.randint(k_t, (4,), 0, 64, dev).cpu(),
+                           rng.randint(k_t, (4,), 0, 64))
+               and torch.equal(rng.bernoulli(k_t, 0.5, (4,), dev).cpu(),
+                               rng.bernoulli(k_t, 0.5, (4,))))
+    bit_rows.append(dict(what="randint, bernoulli (4,) card vs CPU",
+                         ok=host_ok))
+    # each mode's launches are its own (draw_launches): the lattice's on
+    # the main path, the uniforms' (bernoulli) and the bits' (randint) in
+    # path 8c's device trainer
+    for what, rows, nbytes, path in (("lattice", lat_rows, 4, "main"),
+                                     ("uniform", uni_rows, 4, "path 8c"),
+                                     ("bits", bit_rows, 8, "path 8c")):
+        top = rows[0]
+        entry(f"threefry_draw {what}", "threefry.cu", None, all_ok(rows),
+              0.0, top["ms"], top["plain_ms"],
+              top["hashed"] * top["samples"] * nbytes,
+              top["hashed"] * OPS_THREEFRY, path=path,
+              counter=f"threefry_draw {what}", rows=rows)
     return out
 
 
@@ -2532,8 +2632,8 @@ def train_path(torch, _lib):
     one step of the frozen recipe of the reduced net, card against CPU;
     (c) the device trainer's step for 300 steps, timed; (d) its f16
     checkpoint through ``MatNetInference``; (e) ``generate`` and ``train``
-    on disk at the vit-b width. Returns the launches of (a) and of
-    ``generate``."""
+    on disk at the vit-b width. Returns the launches of (a), of
+    ``generate`` and (``draw_launches``) of (c)'s draws."""
     from materialist_tpu_torch.cli import train_matnet_device as tdev
     log(f"[path 8a] render_dataset: {PATH8_TUPLES} tuples at "
         f"{tdev.IM_HW[0]}x{tdev.IM_HW[1]}, {PATH8_SPP} spp, on the card")
@@ -2546,9 +2646,9 @@ def train_path(torch, _lib):
     log(f"  {sec:.2f} s, {sec / PATH8_TUPLES * 1e3:.1f} ms per tuple; "
         f"image mean {float(data['im'].mean()):.4f}")
     frozen_step_card_vs_cpu(torch, data)
-    net = scratch_on_card(torch, data)
+    net, draws = scratch_on_card(torch, data)
     checkpoint_roundtrip(torch, net)
-    return launches, disk_route(torch, _lib)
+    return launches, disk_route(torch, _lib), draws
 
 
 def _path8_counters(launches, want, what):
@@ -2717,11 +2817,13 @@ def scratch_on_card(torch, data):
     the operations bound. Then the first 30 steps again, from a fresh net
     of the same seed at the default flags (``repeat_first_steps``): their
     losses and the parameters after them must equal the first run's bit
-    for bit. Returns the trained net."""
+    for bit. Returns the trained net and the draws' launches by mode
+    (``draw_launches``) in the first 30 steps."""
     import copy
     from materialist_tpu_torch import rng
     from materialist_tpu_torch.cli import train_matnet_device as tdev
     from materialist_tpu_torch.models import train as tr
+    from materialist_tpu_torch.ops.kernels import _lib
     log(f"[path 8c] device trainer step, batch {PATH8_BATCH}, "
         f"{PATH8_STEPS} steps on the {PATH8_TUPLES} tuples")
     net = tdev.reduced_net(SEED, DEV)
@@ -2740,11 +2842,15 @@ def scratch_on_card(torch, data):
             mm_tf32 = torch.backends.cuda.matmul.allow_tf32
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            before = draw_launches(_lib.LAUNCHES_BY_SHAPE)
             losses, ms, key = _step_loop(torch, step, REPEAT_STEPS,
                                          rng.key(SEED + 1))
             if flags:
                 run1 = (losses, {k: v.clone()
                                  for k, v in m.state_dict().items()})
+                draws = {k: v - before[k] for k, v in
+                         draw_launches(_lib.LAUNCHES_BY_SHAPE).items()}
+                log(f"  draws in the first {REPEAT_STEPS} steps: {draws}")
             more, ms_more, key = _step_loop(torch, step, n - REPEAT_STEPS,
                                             key)
             losses, ms = torch.cat([losses, more]), ms + ms_more
@@ -2784,7 +2890,7 @@ def scratch_on_card(torch, data):
     if not repeats:
         fail(f"path 8: the first {REPEAT_STEPS} steps from the same seed "
              "did not repeat bit for bit")
-    return net
+    return net, draws
 
 
 def repeat_first_steps(torch, data, losses, params):
@@ -2975,9 +3081,10 @@ BENCH_ARGS = ["--res", str(BENCH_RES), "--fresh-iters", "2",
 STEP_KERNELS = ("march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
                 "row_gather", "row_scatter_add", "row_scatter_add_bf16",
                 "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
-                "env_pdf_dir", "env_lookup_bilinear")
+                "env_pdf_dir", "env_lookup_bilinear", "threefry_draw")
 RELIGHT_KERNELS = ("march_pair", "shade_bounce_fwd", "row_gather",
-                   "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear")
+                   "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear",
+                   "threefry_draw")
 
 
 def bench_path(torch, _lib):

@@ -27,7 +27,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
 LIB_PATH = os.path.join(BUILD, "libmaterialist_kernels.so")
 SOURCES = ("envkernels.cu", "gathers.cu", "march_pair.cu", "rowops.cu",
-           "shadebounce.cu")
+           "shadebounce.cu", "threefry.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds where its
 # plain version does (the march's hit decisions follow the float order)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,7 +37,8 @@ LAUNCHES = {name: 0 for name in (
     "march_pair", "march_single", "shade_bounce_fwd", "shade_bounce_bwd",
     "row_gather", "row_scatter_add", "row_scatter_add_bf16",
     "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
-    "env_pdf_dir", "env_lookup_bilinear", "onehot_gather", "vreg_gather")}
+    "env_pdf_dir", "env_lookup_bilinear", "onehot_gather", "vreg_gather",
+    "threefry_draw")}
 
 # (name, shape tuple) -> launches; each wrapper says what its shape lists
 LAUNCHES_BY_SHAPE = {}
@@ -131,6 +132,8 @@ def build(verbose: bool = False) -> float:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 _SIGNATURES = {
     "march_pair_launch": ([_P] * 10 + [_I] * 10 + [_F] * 6 + [_I] * 4
@@ -147,6 +150,7 @@ _SIGNATURES = {
     "env_lookup_bilinear_launch": [_P] * 6 + [_I] * 3 + [_P],
     "onehot_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
     "vreg_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
+    "threefry_launch": [_P, _I, _L, _I, _I, _U, _U, _F, _F, _P],
 }
 
 

@@ -179,9 +179,10 @@ def _march_geometry(cfg: RenderConfig, gbuf: GBuffer):
     return torch.where(v, d, dist), v
 
 
-# plastic-constant (R2) lattice generators and the golden ratio
-_R2_G = (0.7548776662466927, 0.5698402909980532)
-_PHI_1 = 0.6180339887498949
+# the lattice generators by stream width: the golden ratio, the
+# plastic-constant (R2) pair
+_LATTICE_G = {1: (0.6180339887498949,),
+              2: (0.7548776662466927, 0.5698402909980532)}
 
 
 def _stream_uniform(cfg: RenderConfig, key, s: int, n_loc: int, dims: int,
@@ -190,11 +191,7 @@ def _stream_uniform(cfg: RenderConfig, key, s: int, n_loc: int, dims: int,
     rotated rank-1 lattices over the sample axis (cfg.lds) or i.i.d."""
     if not cfg.lds:
         return rng.uniform(key, (s, n_loc, dims), device)
-    g = torch.tensor(_R2_G[:dims] if dims >= 2 else (_PHI_1,),
-                     dtype=torch.float32, device=device)
-    t = torch.arange(s, dtype=torch.float32, device=device)[:, None, None]
-    off = rng.uniform(key, (1, n_loc, dims), device)
-    return torch.fmod(t * g + off, 1.0)
+    return rng.lattice(key, s, n_loc, _LATTICE_G[dims], device)
 
 
 def _primary_state(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,

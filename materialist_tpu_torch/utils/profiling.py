@@ -364,6 +364,24 @@ def by_ranges(events) -> tuple:
     return ranges, idle
 
 
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def syncs_by_range(events) -> dict:
+    """Span name → the runtime calls of a profile's events that wait for
+    the card (``SYNCS``) whose innermost open span it is (``outside``:
+    none open)."""
+    cpu = [e for e in events if e.device_type.name == "CPU"]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
+             if e.name in _SPANS]
+    out = {}
+    for chain in _chains_at(spans, [e.time_range.start for e in cpu
+                                    if e.name in SYNCS]):
+        name = chain[0] if chain else OUTSIDE
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
 def gather_sector_bytes(idx, k: int, sector: int = 32) -> int:
     """The least bytes device memory moves for the row gather
     ``out[q] = table[idx[q]]`` from a float32 table (N, k) whose base lies

@@ -21,8 +21,9 @@ first units and so warms every shape. Then, one JSON line each:
   the order with, without, without, with: the unit's host ms under the
   profiler (``wall_ms``), busy ms, device operations and
   ``utils/profiling.py::device_summary``'s ``ranges`` (device ms and
-  operations by innermost span) and ``idle_by_range`` (idle ms by the
-  span the host was in). A
+  operations by innermost span), ``idle_by_range`` (idle ms by the
+  span the host was in) and ``syncs_by_range`` (the runtime calls that
+  wait for the card, by the span they were made in). A
   unit "without" clears torch's Python-side profiler flag while it runs,
   so the spans open no range; the profiler records as before.
 
@@ -138,7 +139,9 @@ def main(argv=None):
             "ranges_device_ms": sum(r["device_ms"] for n, r in ranges.items()
                                     if n != profiling.OUTSIDE),
             "idle_ms": sum(idle.values()), "ranges": ranges,
-            "idle_by_range": idle, "top": s["top"]}), flush=True)
+            "idle_by_range": idle,
+            "syncs_by_range": profiling.syncs_by_range(prof.events()),
+            "top": s["top"]}), flush=True)
 
 
 if __name__ == "__main__":

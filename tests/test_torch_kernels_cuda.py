@@ -4,6 +4,7 @@ the march and the material adjoint at the 1024² bench's chunk. Needs
 an NVIDIA GPU: marked ``cuda`` and skipped where there is none. Run on the
 card with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``."""
 
+import math
 import os
 
 import pytest
@@ -745,3 +746,71 @@ def test_bilinear_align_corners_card_against_cpu(card, shape, size):
     for got, ref in zip(res[str(card)], res["cpu"]):
         assert float((got - ref).abs().max()) <= 1e-6 * float(
             ref.abs().max())
+
+
+# the draws (csrc/threefry.cu) against their int64 plain versions, bit for
+# bit: keys from split and fold_in, the 1024² bench's lattice streams (8
+# samples of 1,048,576 pixels over 1 or 2 dims), the 512² relight's and
+# ragged sizes
+_DRAW_KEYS = (rng.key(0), rng.split(rng.key(7), 3)[2],
+              rng.fold_in(rng.split(rng.fold_in(rng.key(3), 1), 3)[1], 991))
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.device.type == "cuda"
+    if got.is_floating_point():
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("s,n,dims", [(8, 1048576, 2), (8, 1048576, 1),
+                                      (8, 262144, 2), (8, 262144, 1),
+                                      (8, 1023, 1), (3, 1025, 2), (1, 1, 1)])
+def test_threefry_lattice(card, s, n, dims):
+    from materialist_tpu_torch.ops.kernels import _lib
+    gens = shader._LATTICE_G[dims]
+    for k in _DRAW_KEYS:
+        _lib.reset_launches()
+        got = rng.lattice(k, s, n, gens, card)
+        assert _lib.LAUNCHES["threefry_draw"] == 1
+        assert _lib.LAUNCHES_BY_SHAPE == {
+            ("threefry_draw", (n * dims, s, 4, 2)): 1}
+        _same_bits(got, rng.lattice_plain(k, s, n, gens))
+        _same_bits(got, rng.lattice_plain(k, s, n, gens, card))
+
+
+@pytest.mark.parametrize("shape", [(1, 1048576, 1), (1, 1048576, 2),
+                                   (8, 262144, 2), (1,), (1023,), (1025,),
+                                   (3, 7), (5, 33, 3)])
+def test_threefry_bits_and_uniform(card, shape):
+    from materialist_tpu_torch.ops.kernels import _lib
+    n = math.prod(shape)
+    for k in _DRAW_KEYS:
+        _lib.reset_launches()
+        _same_bits(rng.bits(k, shape, card), rng.bits_plain(k, shape))
+        _same_bits(rng.uniform(k, shape, card), rng.uniform_plain(k, shape))
+        assert _lib.LAUNCHES_BY_SHAPE == {
+            ("threefry_draw", (n, 1, 8, 0)): 1,
+            ("threefry_draw", (n, 1, 4, 1)): 1}
+        _same_bits(rng.uniform(k, shape, card, minval=-3.0, maxval=7.5),
+                   rng.uniform(k, shape, minval=-3.0, maxval=7.5))
+
+
+def test_threefry_randint_and_bernoulli_equal_the_cpu(card):
+    from materialist_tpu_torch.ops.kernels import _lib
+    # the device trainer's draws reach the kernel: randint two launches of
+    # the bits, bernoulli one of the uniforms
+    _lib.reset_launches()
+    rng.randint(_DRAW_KEYS[1], (4,), 0, 64, card)
+    rng.bernoulli(_DRAW_KEYS[1], 0.5, (4,), card)
+    assert _lib.LAUNCHES_BY_SHAPE == {("threefry_draw", (4, 1, 8, 0)): 2,
+                                      ("threefry_draw", (4, 1, 4, 1)): 1}
+    for k in _DRAW_KEYS:
+        for shape in ((4,), (1000,)):
+            for lo, hi in ((0, 64), (-100, 70000), (-2 ** 31, 2 ** 31 - 1)):
+                _same_bits(rng.randint(k, shape, lo, hi, card),
+                           rng.randint(k, shape, lo, hi))
+            for p in (0.5, 0.1):
+                _same_bits(rng.bernoulli(k, p, shape, card),
+                           rng.bernoulli(k, p, shape))

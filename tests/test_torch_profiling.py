@@ -329,6 +329,22 @@ def test_by_ranges_on_a_synthetic_profile():
     assert sum(idle.values()) + 0.016 == pytest.approx(0.100)
 
 
+def test_syncs_by_range_on_a_synthetic_profile():
+    for name in ("t.root", "t.stage_a", "t.stage_b"):
+        P.span(name)
+    root = ev("t.root", 1, 0.0, 100.0, annotation=True)
+    a = ev("t.stage_a", 2, 10.0, 40.0, parent=root, annotation=True)
+    b = ev("t.stage_b", 3, 50.0, 90.0, parent=root, annotation=True)
+    sync = [ev("cudaStreamSynchronize", 10 + j, t, t + 1.0)
+            for j, t in enumerate((12.0, 20.0, 60.0, 95.0, 120.0))]
+    dev_sync = ev("cudaDeviceSynchronize", 20, 30.0, 31.0)
+    other = [ev("cudaLaunchKernel", 21, 13.0, 13.5),
+             ev("cudaStreamSynchronize", 22, 14.0, 15.0, CUDA)]
+    assert P.syncs_by_range([root, a, b, dev_sync] + sync + other) == {
+        "t.stage_a": 3, "t.stage_b": 1, "t.root": 1, P.OUTSIDE: 1}
+    assert P.syncs_by_range([root, a, b] + other) == {}
+
+
 def test_by_ranges_on_a_cpu_profile():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with P.span("t.cpu_root"):

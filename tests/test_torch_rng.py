@@ -103,3 +103,149 @@ def test_device_trainer_batch_draw():
         np.testing.assert_array_equal(
             np.asarray(jax.random.bernoulli(kf, 0.5, (4,))),
             rng.bernoulli(kft, 0.5, (4,)).numpy())
+
+
+def _jax_keys():
+    """Pairs of equal keys (JAX, port): a seed's, and keys from split and
+    fold_in as the trace derives its streams'."""
+    k, kt = jax.random.PRNGKey(5), rng.key(5)
+    yield k, kt
+    yield (jax.random.fold_in(jax.random.split(k, 3)[1], 991),
+           rng.fold_in(rng.split(kt, 3)[1], 991))
+    yield (jax.random.split(jax.random.fold_in(k, 2 ** 31 + 17), 4)[3],
+           rng.split(rng.fold_in(kt, 2 ** 31 + 17), 4)[3])
+
+
+@pytest.mark.parametrize("dims", [1, 2])
+@pytest.mark.parametrize("s,n", [(8, 4096), (3, 1025), (64, 257), (1, 1)])
+def test_lattice_matches_jax(s, n, dims):
+    """The port's lattice stream and ``_stream_uniform`` (lattice and
+    i.i.d.) equal the JAX package's ``_lds_uniform`` and
+    ``_stream_uniform`` bit for bit, eager and under ``jax.jit``."""
+    from materialist_tpu.render import shader as jshader
+
+    from materialist_tpu_torch.render import shader
+    lds_jit = jax.jit(jshader._lds_uniform, static_argnums=(1, 2, 3))
+    for k, kt in _jax_keys():
+        want = np.asarray(jshader._lds_uniform(k, s, n, dims))
+        assert want.dtype == np.float32 and want.shape == (s, n, dims)
+        np.testing.assert_array_equal(np.asarray(lds_jit(k, s, n, dims)),
+                                      want)
+        for got in (rng.lattice(kt, s, n, shader._LATTICE_G[dims]),
+                    shader._stream_uniform(shader.RenderConfig(), kt, s, n,
+                                           dims, torch.device("cpu"))):
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          want.view(np.int32))
+        iid = np.asarray(jshader._stream_uniform(
+            jshader.RenderConfig(lds=False), k, s, n, dims))
+        got = shader._stream_uniform(shader.RenderConfig(lds=False), kt, s,
+                                     n, dims, torch.device("cpu"))
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      iid.view(np.int32))
+
+
+# the 1024² bench's pixels: a stream hashes (1, 1,048,576, dims)
+_BENCH_N = 1024 * 1024
+
+
+@pytest.mark.parametrize("dims", [1, 2])
+def test_draws_match_jax_at_the_bench_count(dims):
+    """Bits, uniforms and the lattice over the 1024² bench's stream (8
+    samples of 1,048,576 pixels) equal ``jax.random`` and the JAX
+    package's ``_lds_uniform`` bit for bit."""
+    from materialist_tpu.render import shader as jshader
+
+    from materialist_tpu_torch.render import shader
+    k, kt = list(_jax_keys())[1]
+    shape = (1, _BENCH_N, dims)
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.bits(k, shape)).astype(np.int64),
+        rng.bits(kt, shape).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.uniform(k, shape)).view(np.int32),
+        rng.uniform(kt, shape).numpy().view(np.int32))
+    want = np.asarray(jshader._lds_uniform(k, 8, _BENCH_N, dims))
+    got = rng.lattice(kt, 8, _BENCH_N, shader._LATTICE_G[dims]).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# the lattice stream as the shader composed it before the draw became one
+# kernel on the card: generators copied to the device, t * g + u, fmod
+_OLD_G = {1: (0.6180339887498949,),
+          2: (0.7548776662466927, 0.5698402909980532)}
+
+
+def _old_stream(key, s, n, dims):
+    g = torch.tensor(_OLD_G[dims], dtype=torch.float32)
+    t = torch.arange(s, dtype=torch.float32)[:, None, None]
+    return torch.fmod(t * g + rng.uniform(key, (1, n, dims)), 1.0)
+
+
+@pytest.mark.parametrize("dims", [1, 2])
+@pytest.mark.parametrize("s,n", [(8, 1024), (3, 1025), (1, 1)])
+def test_lattice_is_the_old_composition(s, n, dims):
+    from materialist_tpu_torch.render import shader
+    kt = rng.fold_in(rng.split(rng.key(5), 3)[1], 991)
+    want = _old_stream(kt, s, n, dims)
+    for got in (rng.lattice(kt, s, n, shader._LATTICE_G[dims]),
+                rng.lattice_plain(kt, s, n, shader._LATTICE_G[dims]),
+                shader._stream_uniform(shader.RenderConfig(), kt, s, n, dims,
+                                       torch.device("cpu"))):
+        assert got.dtype == torch.float32 and got.shape == (s, n, dims)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("draw", ["bits", "uniform", "lattice"])
+def test_draws_raise_on_other_devices_dtypes_and_keys(draw):
+    kt = rng.key(3)
+    call = {"bits": lambda k, d: rng.bits(k, (4,), d),
+            "uniform": lambda k, d: rng.uniform(k, (4,), d),
+            "lattice": lambda k, d: rng.lattice(k, 2, 4, (0.5,), d)}[draw]
+    with pytest.raises(ValueError, match="CPU or a CUDA card"):
+        call(kt, "meta")
+    # checked before anything reaches a card
+    with pytest.raises(TypeError, match="int64 tensor of shape"):
+        call(kt.to(torch.int32), "cuda")
+    with pytest.raises(TypeError, match="int64 tensor of shape"):
+        call(rng.split(kt, 2), "cuda")
+
+
+@pytest.mark.parametrize("gens", [(), (0.1, 0.2, 0.3)])
+def test_lattice_raises_for_other_widths(gens):
+    for dev in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="1 or 2 generators"):
+            rng.lattice(rng.key(0), 2, 4, gens, dev)
+
+
+def test_draw_counter_and_its_bound_at_the_bench_stream():
+    from materialist_tpu_torch.ops.kernels import _lib
+
+    from perfbench import files
+    assert "threefry.cu" in _lib.SOURCES and "threefry_draw" in _lib.LAUNCHES
+    mod = files.load("roofline", "threefry_draw")
+    assert set(mod.KERNELS) <= set(_lib.kernel_names())
+    # the 1024² bench's 2-dim lattice stream: 8 samples of 1,048,576 pixels
+    # by 2 dims, 4 bytes each; 73 operations a hashed value
+    assert mod.bound((1048576 * 2, 8, 4, 2)) == (8 * 1048576 * 2 * 4,
+                                                 1048576 * 2 * 73)
+    assert mod.bound((4, 1, 8, 0)) == (32, 4 * 73)
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 7), (1, 1023, 2)])
+def test_cpu_bits_are_the_int64_version_and_launch_nothing(shape):
+    from materialist_tpu_torch.ops.kernels import _lib
+    from materialist_tpu_torch.utils import profiling as P
+    kt = rng.split(rng.key(11), 2)[1]
+    k1, k2 = int(kt[0]), int(kt[1])
+    cnt = torch.arange(int(np.prod(shape)), dtype=torch.int64)
+    b1, b2 = rng.threefry2x32(k1, k2, cnt >> 32, cnt & 0xFFFFFFFF)
+    before = dict(_lib.LAUNCHES)
+    with P.span("test.draw_root"):
+        got = rng.bits(kt, shape)
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    assert torch.equal(got, (b1 ^ b2).reshape(shape))
+    assert torch.equal(rng.bits_plain(kt, shape), got)
+    assert _lib.LAUNCHES == before
+    rec = P.recent("test.draw_root")[-1]
+    assert rec["counts"][P.RNG_VALUES] == int(np.prod(shape))
+    assert rec["spans"]["rng.bits"]["calls"] == 1
