@@ -37,9 +37,11 @@ from materialist_tpu_torch.models.train import (CUBLAS_WORKSPACE, REDUCED,
                                                 map_psnr, save_checkpoint,
                                                 scratch_step)
 from materialist_tpu_torch.render.shader import RenderConfig
+from materialist_tpu_torch.utils.profiling import span
 
 IM_HW = (224, 336)   # multiples of 14 (ViT patch) and 16 (march mip)
 DATA_KEYS = ("im", "albedo", "roughness", "metallic", "normal", "depth")
+_BATCH = span("train.batch")
 
 
 def render_dataset(n_tuples: int, spp: int, seed: int, device=None) -> dict:
@@ -77,21 +79,23 @@ def reduced_net(seed: int, device) -> MaterialNet:
 def make_device_step(train_step, data: dict, batch: int):
     """``step(key)``: draw ``batch`` tuple indices and flips from ``key``
     on the data's device, mirror the flipped tuples (normal-x negated) and
-    run ``train_step`` on them."""
+    run ``train_step`` on them. The draw, the gather and the flips are the
+    root span ``train.batch``, closed before the step opens its own."""
     dev = data["im"].device
     n = data["im"].shape[0]
     neg_x = torch.tensor([-1.0, 1.0, 1.0], device=dev).view(1, 3, 1, 1)
 
     def step(key):
-        k_idx, k_flip = rng.split(key)
-        idx = rng.randint(k_idx, (batch,), 0, n, device=dev)
-        flip = rng.bernoulli(k_flip, 0.5, (batch,), device=dev)
-        flip = flip.view(batch, 1, 1, 1)
-        b = {}
-        for k, v in data.items():
-            v = v.index_select(0, idx)
-            b[k] = torch.where(flip, v.flip(-1), v)
-        b["normal"] = b["normal"] * torch.where(flip, neg_x, 1.0)
+        with _BATCH:
+            k_idx, k_flip = rng.split(key)
+            idx = rng.randint(k_idx, (batch,), 0, n, device=dev)
+            flip = rng.bernoulli(k_flip, 0.5, (batch,), device=dev)
+            flip = flip.view(batch, 1, 1, 1)
+            b = {}
+            for k, v in data.items():
+                v = v.index_select(0, idx)
+                b[k] = torch.where(flip, v.flip(-1), v)
+            b["normal"] = b["normal"] * torch.where(flip, neg_x, 1.0)
         return train_step(b)
 
     return step

@@ -13,6 +13,9 @@ The submodules carry the names of the reference's state dict
 .conv{1,2}``, ``scratch.output_conv2.{0,2}``, ...). ``refinenet4`` takes
 one input and so has no ``resConfUnit1``; ``models.convert.from_reference``
 drops that unit's keys and ``pretrained.mask_token``, by name.
+
+``MaterialNet.forward`` opens the spans ``matnet.encoder``,
+``matnet.depth_head`` and ``matnet.material_head`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ from torch import nn
 
 from materialist_tpu_torch.models.dinov2 import PATCH_SIZE, DINOv2, init_
 from materialist_tpu_torch.ops.resize import bilinear_align_corners
+from materialist_tpu_torch.utils.profiling import span
+
+_ENCODER = span("matnet.encoder")
+_DEPTH_HEAD = span("matnet.depth_head")
+_MATERIAL_HEAD = span("matnet.material_head")
 
 
 class ResidualConvUnit(nn.Module):
@@ -154,9 +162,12 @@ class MaterialNet(nn.Module):
         """x: (B, 3, H, W) image, H and W multiples of 14. Returns a dict
         of (B, ch, H, W) maps."""
         ph, pw = x.shape[-2] // PATCH_SIZE, x.shape[-1] // PATCH_SIZE
-        tokens = self.pretrained(x, self.layer_idx)
-        depth = F.relu(self.depth_head(tokens, ph, pw))
-        armn = self.material_head(tokens, ph, pw)
+        with _ENCODER:
+            tokens = self.pretrained(x, self.layer_idx)
+        with _DEPTH_HEAD:
+            depth = F.relu(self.depth_head(tokens, ph, pw))
+        with _MATERIAL_HEAD:
+            armn = self.material_head(tokens, ph, pw)
         return {"depth": depth, "albedo": armn[:, 0:3],
                 "roughness": armn[:, 3:4], "metallic": armn[:, 4:5],
                 "normal": armn[:, 5:8]}

@@ -14,7 +14,8 @@ The submodules carry the ``lpips`` package's names: ``scaling_layer``
 torchvision indices (convolutions at 0, 3, 6, 8, 10), and
 ``lin{0..4}.model.1.weight`` (shape (1, C, 1, 1)) aliased as
 ``lins.{i}``. So a full state dict of that package loads with
-``load_state_dict``. The weights themselves are an input: nothing is
+``load_state_dict``. The weights themselves are an input (``lpips_fn``
+takes a module or a state dict, ``load_lpips`` a file): nothing is
 downloaded.
 """
 
@@ -121,19 +122,22 @@ def required_keys() -> set:
             | {p + s for p in conv_keys() for s in (".weight", ".bias")})
 
 
-def load_lpips(weights_path: str, device=None):
-    """``perceptual_fn(pred, target)`` for ``models.train`` from a state
-    dict of the ``lpips`` package (the AlexNet trunk included): the mean
-    LPIPS of (B, 3, H, W) or (3, H, W) maps in [0, 1]. The net is frozen
+def lpips_fn(source, device=None):
+    """``perceptual_fn(pred, target)`` for ``models.train`` from an
+    ``LPIPS`` module or a state dict of the ``lpips`` package (the AlexNet
+    trunk included): the mean LPIPS of (B, 3, H, W) or (3, H, W) maps in
+    [0, 1]. The net (a given module itself, put in eval mode) is frozen
     and lives on ``device`` (the card unless the CPU is asked for)."""
     dev = device_mod.resolve(device)
-    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
-    missing = required_keys() - set(sd)
-    if missing:
-        raise KeyError(f"LPIPS state dict lacks {sorted(missing)}")
-    model = LPIPS()
-    model.load_state_dict(sd, strict=False)
-    model.to(dev).requires_grad_(False)
+    if isinstance(source, LPIPS):
+        model = source
+    else:
+        missing = required_keys() - set(source)
+        if missing:
+            raise KeyError(f"LPIPS state dict lacks {sorted(missing)}")
+        model = LPIPS()
+        model.load_state_dict(source, strict=False)
+    model.to(dev).eval().requires_grad_(False)
 
     def perceptual_fn(pred, target):
         if pred.ndim == 3:
@@ -141,3 +145,9 @@ def load_lpips(weights_path: str, device=None):
         return torch.mean(model(pred, target, normalize=True))
 
     return perceptual_fn
+
+
+def load_lpips(weights_path: str, device=None):
+    """``lpips_fn`` of the state dict saved at ``weights_path``."""
+    return lpips_fn(torch.load(weights_path, map_location="cpu",
+                               weights_only=True), device)

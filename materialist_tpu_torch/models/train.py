@@ -3,7 +3,7 @@ NCHW.
 
 The losses of the reference's trainer: SiLog depth (λ = 0.5) over the
 valid depth range, normal (1 − cos + L1), albedo (L1 plus an optional
-perceptual term, LPIPS-alex in the reference: ``models.lpips.load_lpips``),
+perceptual term, LPIPS-alex in the reference: ``models.lpips.lpips_fn``),
 L1 roughness and metallic. Partial fine-tuning trains only
 ``depth_head.scratch.output_conv2`` and the material head's ``scratch``;
 the rest is frozen (``requires_grad_(False)``: no update, no weight decay,
@@ -25,6 +25,12 @@ before CUDA starts. New tensors are not filled with NaN
 (``fill_uninitialized_memory``): the fills add a third to a step's
 launches, and the step repeats bit for bit without them (``chip_smoke.py``
 path 8c).
+
+A step is the root span ``train.step`` (``utils/profiling.py``):
+``train.forward``, ``train.loss`` (``train.lpips`` inside it),
+``train.backward``, ``train.clip`` when it clips and ``train.update``,
+with the counters ``train.images`` and ``train.pixels`` (images × H × W)
+of its batch.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 from materialist_tpu_torch import device as device_mod
 from materialist_tpu_torch.models.convert import matnet_to_flax
 from materialist_tpu_torch.models.dpt import MaterialNet
+from materialist_tpu_torch.utils.profiling import count, span
 
 MIN_DEPTH, MAX_DEPTH = 0.01, 20.0
 BETAS, EPS = (0.9, 0.999), 1e-8
@@ -53,6 +60,14 @@ MAP_KEYS = ("albedo", "roughness", "metallic", "normal", "depth")
 # the two workspace settings under which cuBLAS is deterministic
 CUBLAS_WORKSPACE = ":4096:8"
 CUBLAS_DETERMINISTIC = (":4096:8", ":16:8")
+IMAGES, PIXELS = "train.images", "train.pixels"
+_STEP = span("train.step")
+_FORWARD = span("train.forward")
+_LOSS = span("train.loss")
+_LPIPS = span("train.lpips")
+_BACKWARD = span("train.backward")
+_CLIP = span("train.clip")
+_UPDATE = span("train.update")
 
 
 def silog_loss(pred, target, valid, lambd: float = 0.5):
@@ -77,7 +92,9 @@ def matnet_losses(pred, batch, perceptual_fn: Optional[Callable] = None):
                 + torch.abs(pred["normal"] - batch["normal"]).mean())
     l_albedo = torch.abs(pred["albedo"] - batch["albedo"]).mean()
     if perceptual_fn is not None:
-        l_albedo = l_albedo + perceptual_fn(pred["albedo"], batch["albedo"])
+        with _LPIPS:
+            l_albedo = l_albedo + perceptual_fn(pred["albedo"],
+                                                batch["albedo"])
     l_rough = torch.abs(pred["roughness"] - batch["roughness"]).mean()
     l_metal = torch.abs(pred["metallic"] - batch["metallic"]).mean()
     total = l_depth + l_normal + l_albedo + l_rough + l_metal
@@ -183,21 +200,30 @@ def make_train_step(net: MaterialNet, optimizer,
     the net's device. Returns the detached losses; the clipped gradients
     stay in ``.grad`` until the next step."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
-    count = [0]
+    taken = [0]
 
     def step(batch):
         _check_cublas(params)
-        with _deterministic_algorithms():
+        im = batch["im"]
+        with _STEP, _deterministic_algorithms():
+            count(IMAGES, im.shape[0])
+            count(PIXELS, im.shape[0] * im.shape[-2] * im.shape[-1])
             optimizer.zero_grad(set_to_none=True)
-            losses = matnet_losses(net(batch["im"]), batch, perceptual_fn)
-            losses["total"].backward()
+            with _FORWARD:
+                pred = net(im)
+            with _LOSS:
+                losses = matnet_losses(pred, batch, perceptual_fn)
+            with _BACKWARD:
+                losses["total"].backward()
             if clip_norm is not None:
-                clip_by_global_norm(params, clip_norm)
+                with _CLIP:
+                    clip_by_global_norm(params, clip_norm)
             if schedule is not None:
                 for group in optimizer.param_groups:
-                    group["lr"] = schedule(count[0])
-            optimizer.step()
-        count[0] += 1
+                    group["lr"] = schedule(taken[0])
+            with _UPDATE:
+                optimizer.step()
+        taken[0] += 1
         return {k: v.detach() for k, v in losses.items()}
 
     return step

@@ -109,3 +109,26 @@ def test_load_lpips_package_layout(tmp_path, jax_lpips):
     torch.save({k: v for k, v in sd.items() if "lin4" not in k}, path)
     with pytest.raises(KeyError, match="lin4"):
         tlp.load_lpips(path, device="cpu")
+
+
+def test_lpips_fn_from_a_module_or_a_state_dict_equals_load_lpips(tmp_path):
+    """``lpips_fn`` of a seeded module, of its state dict and
+    ``load_lpips`` of that state dict saved give the same value; a module
+    left in train mode is put in eval mode (its dropout off)."""
+    net = _seeded_lpips(6)
+    sd = {k: v for k, v in net.state_dict().items()
+          if k in tlp.required_keys()}
+    path = str(tmp_path / "alex_seeded.pth")
+    torch.save(sd, path)
+    x, y = _images(7)
+    x, y = _nchw(x), _nchw(y)
+    with torch.no_grad():
+        from_file = float(tlp.load_lpips(path, device="cpu")(x, y))
+        from_sd = float(tlp.lpips_fn(sd, device="cpu")(x, y))
+        from_module = float(tlp.lpips_fn(net.train(), device="cpu")(x, y))
+    assert from_file == from_sd == from_module > 0
+    assert not net.training
+    assert not any(p.requires_grad for p in net.parameters())
+    with pytest.raises(KeyError, match="lin0"):
+        tlp.lpips_fn({k: v for k, v in sd.items() if "lin0" not in k},
+                     device="cpu")

@@ -17,7 +17,10 @@ profiling.py``) on the CPU:
   engine's thread) and each idle gap to the span the host was in;
 - the benchmark's readers of the spans return None on an empty context
   and read the window's records;
-- ``PhaseTimer`` times its phases as spans of the one store.
+- ``PhaseTimer`` times its phases as spans of the one store;
+- a MaterialNet fine-tuning step records the roots ``train.batch`` and
+  ``train.step`` with their inner spans and counters, and the benchmark's
+  count of the net's forward operations equals a count by forward hooks.
 """
 
 import ast
@@ -361,7 +364,8 @@ def readers():
     return {name: files.load("metrics", name) for name in (
         "phase.trace_host_ms.inverse", "rng.values_m.inverse",
         "glue.cat_mib.inverse", "trace.host_ms.relight",
-        "shade.host_ms.relight", "rng.keys_host_ms.relight")}
+        "shade.host_ms.relight", "rng.keys_host_ms.relight",
+        "train.host_ms.finetune", "matnet.mfu.finetune")}
 
 
 @pytest.mark.parametrize("ctx", [{}, dict(unit="step", unit_ms=[]),
@@ -418,3 +422,114 @@ def test_phase_timer_times_spans_of_the_store():
     with t2.phase("t.timer_a"):
         pass
     assert t2.counts == {"t.timer_a": 1}
+
+
+SMALL_NET = dict(embed_dim=64, enc_depth=4, num_heads=4, mlp_ratio=4,
+                 features=16,
+                 out_channels=[8, 16, 32, 64], layer_idx=[0, 1, 2, 3],
+                 image=518, batch=2, tuples=3)
+
+
+@pytest.mark.parametrize("clip", [None, 1.0], ids=["recipe", "clipped"])
+def test_finetune_step_records_its_spans_and_counters(clip):
+    from materialist_tpu_torch.cli.train_matnet_device import (
+        make_device_step)
+    from materialist_tpu_torch.models import train as T
+    from materialist_tpu_torch.models.lpips import lpips_fn
+    from perfbench.loops import finetune as bench
+    net = bench.seeded_net(SMALL_NET, 3)
+    step = make_device_step(T.make_train_step(
+        net, T.make_optimizer(net, freeze=True), clip_norm=clip,
+        perceptual_fn=lpips_fn(bench.seeded_lpips(4), "cpu")),
+        bench.make_data(SMALL_NET, 3, "cpu"), SMALL_NET["batch"])
+    n_batch, n_step = len(P.recent("train.batch")), len(P.recent("train.step"))
+    step(rng.key(3))
+    assert len(P.recent("train.batch")) == n_batch + 1
+    assert len(P.recent("train.step")) == n_step + 1
+    batch, rec = P.recent("train.batch")[-1], P.recent("train.step")[-1]
+    # the draw is its own root, closed before the step opens
+    assert "rng.bits" in batch["spans"] and "train.step" not in batch["spans"]
+    assert "train.batch" not in rec["spans"]
+    inner = {"train.step", "train.forward", "matnet.encoder",
+             "matnet.depth_head", "matnet.material_head", "train.loss",
+             "train.lpips", "train.backward", "train.update"}
+    assert set(rec["spans"]) == inner | ({"train.clip"} if clip else set())
+    assert all(rec["spans"][n]["calls"] == 1 for n in inner)
+    assert rec["counts"] == {"train.images": 2, "train.pixels": 2 * 518 ** 2}
+
+
+def test_matnet_flops_forward_equals_a_hook_count():
+    from torch import nn
+
+    from materialist_tpu_torch.models.dinov2 import Attention
+    from materialist_tpu_torch.models.lpips import LPIPS
+    from perfbench.loops import finetune as bench
+    from perfbench.metrics import _matnet_flops as F
+    tot = {}
+
+    def counter(part):
+        def hook(m, inp, out):
+            a = inp[0]
+            if isinstance(m, nn.Linear):
+                n = 2 * a.numel() * m.out_features
+            elif isinstance(m, nn.Conv2d):
+                n = 2 * m.weight[0].numel() * out.numel()
+            elif isinstance(m, nn.ConvTranspose2d):
+                n = 2 * a.numel() * m.weight[0].numel()
+            else:
+                b, t, c = a.shape
+                n = 4 * b * t * t * c
+            tot[part] = tot.get(part, 0) + n
+        return hook
+
+    net, lp = bench.seeded_net(SMALL_NET, 1), LPIPS()
+    parts = {"encoder": net.pretrained, "depth_head": net.depth_head,
+             "material_head": net.material_head, "lpips": lp.net}
+    for part, mod in parts.items():
+        for m in mod.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
+                              Attention)):
+                m.register_forward_hook(counter(part))
+    x = torch.rand(2, 3, 518, 518)
+    with torch.no_grad():
+        net(x)
+        lp(x, x)
+    want = F.forward_flops(SMALL_NET, 2, 518, 518)
+    assert tot.pop("lpips") == 2 * 2 * sum(F.lpips_layers(518, 518))
+    assert tot == want
+    step = F.step_flops(SMALL_NET, 2, 518, 518)
+    assert step["total"] == sum(v for k, v in step.items() if k != "total")
+    assert step["lpips"] == 2 * 2 * sum(F.lpips_layers(518, 518))
+
+
+def test_mfu_reader_reads_the_windows_counters():
+    import json
+
+    from perfbench.metrics import _matnet_flops as F
+    from perfbench.metrics._common import PEAK_FP32_PER_S
+    mod = readers()["matnet.mfu.finetune"]
+    root = P.span("train.step")
+    for _ in range(3):
+        with root:
+            P.count("train.images", 16)
+            P.count("train.pixels", 16 * 518 ** 2)
+    ctx = dict(unit="step", unit_ms=[400.0, 400.0, 400.0], window_s=1.2,
+               profile=dict(device_ops=1))
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           "matnet518.json")) as f:
+        conf = json.load(f)
+    flops = F.step_flops(conf, 16, 518, 518)["total"]
+    assert mod.read(ctx) == pytest.approx(
+        100 * flops / 0.4 / PEAK_FP32_PER_S)
+    assert 0 < mod.read(ctx) < 100
+    # a crop other than the configuration's gives nothing to read
+    for _ in range(3):
+        with root:
+            P.count("train.images", 16)
+            P.count("train.pixels", 16 * 224 * 336)
+    assert mod.read(ctx) is None
+    # a step that ran nothing on a card neither
+    with root:
+        P.count("train.images", 16)
+        P.count("train.pixels", 16 * 518 ** 2)
+    assert mod.read(dict(ctx, profile=dict(device_ops=0))) is None
