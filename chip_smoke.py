@@ -11,8 +11,9 @@ minutes on an NVIDIA H100, the kernels' build included). It
    where one PyTorch call does the same, that call (``Tensor.index_add_``,
    ``torch.index_select``, ``torch.nonzero``). The march, the fused bounce
    and its adjoint, the row gather, the row scatter-add (by caller:
-   material adjoint, sky adjoint, compaction scatters), ``compact_sel``
-   and the three envmap kernels are timed at every shape that holds at
+   material adjoint, sky adjoint, compaction scatters), ``compact_sel``,
+   the envmap sampler and fetch and the bounce's record (``bounce_record``,
+   also at the relight's shape) are timed at every shape that holds at
    least a tenth of their launches on the main path, on inputs recorded
    from one compacted trace chunk of the scene (its rays, indices,
    uniforms, packed records and dead rows; the fused bounce's incoming
@@ -31,7 +32,9 @@ minutes on an NVIDIA H100, the kernels' build included). It
    and unaligned views. The
    envmap sampler's rows and columns must equal its plain version's on
    every query, its directions and pdfs lie within 2 units in the last
-   place. The adjoint's envmap gradient is held to a float64 sum of the
+   place; the bounce's record must equal its plain version's bit for bit
+   (the envmap pdf kernel, which only the generic paths launch, is timed
+   at its worst case). The adjoint's envmap gradient is held to a float64 sum of the
    same taps, at those shapes and on a one-hot envmap (every NEE sample
    on one texel) and a 64x64 one, and the whole backward is timed against
    the contraction it replaced. The draws (``threefry_draw``, one kernel
@@ -140,6 +143,10 @@ FLOPS_ENV_TAPS = 60            # per vertex: 2 looks x (4 weights, 12 taps)
 # per hashed value: Threefry-2x32's 2 + 20 x 3 + 5 x 2 adds, rotations and
 # xors, and the xor of its two words, each counted once
 OPS_THREEFRY = 73
+# per row of a fused bounce's record (H): the taps of two directions (an
+# atan2, an acos and some 12 more operations each), D′'s pdf (60 with the
+# sin), the normalisation (10) and the casts, each counted once: a floor
+OPS_RECORD = 120
 # threefry_draw's modes, the fourth field of its launch shape
 DRAW_MODES = ("bits", "uniform", "lattice")
 LOG = []
@@ -148,6 +155,17 @@ TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
 NO_GRAD_NONE_OF = ("shade_bounce_bwd", "row_scatter_add",
                    "row_scatter_add_bf16", "row_scatter_add_coherent",
                    "compact_sel")
+
+
+def record_bytes(shape):
+    """H's bytes at its launch shape (rows, envmap h, w, the alive flags'
+    own elements, the normals' own rows): wi, wi_e (12 B each), pdf_e (4),
+    hit and shadowed (1 each) read a row, the flags (1 B) and normals (12)
+    at their own sizes, the pdf tables once; aux 5 × 2, recb 13 × 2 and
+    the f16 normal 3 × 2 B written a row."""
+    rows, h, w, n_alive, n_nrm = shape
+    return (rows * (12 + 12 + 4 + 1 + 1 + (5 + 13 + 3) * 2) + n_alive
+            + 12 * n_nrm + 4 * (h + h * w))
 
 
 def log(*a):
@@ -555,12 +573,12 @@ def needed_march_steps(torch, cam, tab, origin, direction, n_steps,
 
 def capture_trace(torch, scene, cfg, g):
     """One trace chunk of ``scene`` = (cam, gbuf, mats, env) at ``cfg``,
-    and the inputs of every march_pair, compact_sel, env_sample_dir and
-    env_pdf_dir call of it. Returns a namespace: the scene, ``cfg``,
-    ``key``, ``n`` pixels, ``table5`` (the material table's first five
-    columns), ``recs`` (the records), ``marches``, ``sels`` and
-    ``env_calls`` ({kernel name: calls}), and ``g``, the generator of
-    the noise of the checks on it."""
+    and the inputs of every march_pair, compact_sel, env_sample_dir,
+    env_pdf_dir and bounce_record call of it. Returns a namespace: the
+    scene, ``cfg``, ``key``, ``n`` pixels, ``table5`` (the material
+    table's first five columns), ``recs`` (the records), ``marches``,
+    ``sels`` and ``env_calls`` ({kernel name: calls}), and ``g``, the
+    generator of the noise of the checks on it."""
     import types
 
     from materialist_tpu_torch import rng
@@ -571,9 +589,11 @@ def capture_trace(torch, scene, cfg, g):
     cam, gbuf, mats, env = scene
     key = rng.key(SEED + 1)
     marches, sels = [], []
-    env_calls = {"env_sample_dir": [], "env_pdf_dir": []}
+    env_calls = {"env_sample_dir": [], "env_pdf_dir": [],
+                 "bounce_record": []}
     pair, sel = mk.march_pair, shader.compact_sel
     sample, pdf = ek.env_sample_dir, ek.env_pdf_dir
+    record = shader.bounce_record
 
     def rec_pair(cam_, tab, o, dl, dn, **kw):
         marches.append((cam_, tab, o, dl, dn, kw))
@@ -591,13 +611,19 @@ def capture_trace(torch, scene, cfg, g):
         env_calls["env_pdf_dir"].append(args)
         return pdf(*args)
 
+    def rec_record(*args):
+        env_calls["bounce_record"].append(args)
+        return record(*args)
+
     mk.march_pair, shader.compact_sel = rec_pair, rec_sel
     ek.env_sample_dir, ek.env_pdf_dir = rec_sample, rec_pdf
+    shader.bounce_record = rec_record
     try:
         recs = shader._trace_chunk_paths(key, cfg, cam, gbuf, mats, env)
     finally:
         mk.march_pair, shader.compact_sel = pair, sel
         ek.env_sample_dir, ek.env_pdf_dir = sample, pdf
+        shader.bounce_record = record
     return types.SimpleNamespace(
         cam=cam, gbuf=gbuf, mats=mats, env=env, cfg=cfg, key=key,
         n=cam.height * cam.width,
@@ -1315,23 +1341,65 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                        pk.reshape(-1, 1), pp.reshape(-1, 1), 1e-6, 1e-5,
                        min_frac=0.9999)
 
-    def pdf_case(shp, tr):
-        d = recorded("env_pdf_dir", shp[0], tr)[-1]
-        return dict(run=lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf,
-                                               d),
-                    check=lambda: pdf_check(d),
-                    bytes=shp[0] * 16 + tab_bytes // 2, flops=shp[0] * 60)
-
+    # D′ runs on the generic paths alone (path 5 here): the fused trace's
+    # pdf is H's
     dirs = d_lobe.reshape(m, 3).contiguous()
     o, e = pdf_check(dirs)
     ms = dev_ms(lambda: ek.env_pdf_dir(sampler.m_pdf, sampler.c_pdf, dirs))
     pms = cuda_ms(lambda: ek.env_pdf_dir_plain(sampler.m_pdf, sampler.c_pdf,
                                                dirs), iters=5)
-    rows_d, rows_10 = shape_rows("env_pdf_dir", pdf_case)
-    entry("env_pdf_dir", "envkernels.cu", "envkernels.py:317",
-          o and all_ok(rows_d + rows_10), e, ms, pms,
-          m * 16 + tab_bytes // 2, m * 60, by_shape=rows_d,
-          by_shape_path10=rows_10)
+    entry("env_pdf_dir", "envkernels.cu", "envkernels.py:317", o, e, ms, pms,
+          m * 16 + tab_bytes // 2, m * 60, path="path 5")
+
+    # H: a fused bounce's record (D′'s pdf, both bilinear taps, the gates
+    # and the casts) in one launch, bit for bit against its plain version
+    # (that composition on the card, D′ included) at every main-path and
+    # path-10 shape on the inputs the trace chunks gave it, and at the
+    # relight's (render_final's 512² passes: 8 × 512² jittered rows,
+    # uncompacted), whose bounce 0 is the entry's headline
+    def record_check(args, what):
+        got = ek.bounce_record(*args)
+        want = ek.bounce_record_plain(*args)
+        bad = [int((a.view(torch.int16) != b.view(torch.int16)).sum())
+               for a, b in zip(got, want)]
+        log(f"  bounce_record {what}: aux, recb, nrm halves that differ "
+            f"from the plain version's {bad} (allowed 0)")
+        return not any(bad), float(sum(bad))
+
+    def record_shape(args):
+        """H's launch shape of a call (``_lib.count_launch``'s)."""
+        _lib.reset_launches()
+        ek.bounce_record(*args)
+        (key, _), = _lib.LAUNCHES_BY_SHAPE.items()
+        return key[1]
+
+    def record_case(shp, tr):
+        call = [c for c in tr.env_calls["bounce_record"]
+                if c[2].numel() // 3 == shp[0]]
+        if not call:
+            fail(f"no recorded bounce_record call of {shp[0]} rows")
+        args = call[0]
+        return dict(run=lambda: ek.bounce_record(*args),
+                    check=lambda: record_check(args, f"{list(shp)}"),
+                    bytes=record_bytes(shp), flops=shp[0] * OPS_RECORD)
+
+    tr_rl = capture_trace(torch, (cam_p, gbuf_p, mats_p, env),
+                          shader.RenderConfig(spp=64, chunk=8,
+                                              film_jitter=0.5), g)
+    ok_rl = [record_check(c, f"relight bounce {b}")
+             for b, c in enumerate(tr_rl.env_calls["bounce_record"])]
+    rl = tr_rl.env_calls["bounce_record"][0]
+    shp_rl = record_shape(rl)
+    ms = dev_ms(lambda: ek.bounce_record(*rl))
+    pms = cuda_ms(lambda: ek.bounce_record_plain(*rl), iters=5)
+    rows_d, rows_10 = shape_rows("bounce_record", record_case)
+    entry("bounce_record", "envkernels.cu", None,
+          all(o for o, _ in ok_rl) and len(ok_rl) == 3
+          and all_ok(rows_d + rows_10), max(e for _, e in ok_rl), ms, pms,
+          record_bytes(shp_rl), shp_rl[0] * OPS_RECORD, by_shape=rows_d,
+          by_shape_path10=rows_10, relight_shape=list(shp_rl),
+          jax_function="none (no TPU kernel; replaces the JAX package's "
+          "XLA-fused record ops, materialist_tpu/render/shader.py)")
 
     # E: the sky fetch of a chunk, one query per pixel (its only shape on
     # the main path and on path 10)
@@ -2157,7 +2225,7 @@ def forward_paths(torch, _lib):
             f"{peak / 2**30:.2f} GiB; edit moved the masked pixels by "
             f"{moved:.4f}")
         counters(launches, ("march_pair", "shade_bounce_fwd", "row_gather",
-                            "env_sample_dir", "env_pdf_dir",
+                            "env_sample_dir", "bounce_record",
                             "env_lookup_bilinear"), "path 4")
         out["path 4"] = launches
 
@@ -2189,7 +2257,7 @@ def forward_paths(torch, _lib):
                 != launches["row_gather"]:
             fail(f"path 5 fetched other rows than the transparent side "
                  f"table's: {wide}")
-        if launches["shade_bounce_fwd"] != 0:
+        if launches["shade_bounce_fwd"] or launches["bounce_record"]:
             fail("the transparency edit took the fused shade")
         out["path 5"] = launches
 
@@ -2218,7 +2286,7 @@ def forward_paths(torch, _lib):
         log(f"  {sec:.2f} s; per 32-spp pass: render {ms('render')}; peak "
             f"memory {peak / 2**30:.2f} GiB")
         counters(launches, ("march_pair", "shade_bounce_fwd", "row_gather",
-                            "env_sample_dir", "env_pdf_dir",
+                            "env_sample_dir", "bounce_record",
                             "env_lookup_bilinear"), "path 6")
         out["path 6"] = launches
     finally:
@@ -2346,7 +2414,7 @@ PHOTO_E2E = os.path.join(REPO, "output_imgs", "runs", "photo_e2e")
 PATH7_KERNELS = ("march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
                  "row_gather", "row_scatter_add", "row_scatter_add_bf16",
                  "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
-                 "env_pdf_dir", "env_lookup_bilinear")
+                 "bounce_record", "env_lookup_bilinear")
 
 
 def matnet_flops(torch, net, x):
@@ -2614,7 +2682,7 @@ def predict_cli(torch, _lib):
 # ------------------------------------------------------------ path 8
 
 PATH8_KERNELS = ("march_pair", "shade_bounce_fwd", "row_gather",
-                 "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear")
+                 "env_sample_dir", "bounce_record", "env_lookup_bilinear")
 PATH8_TUPLES, PATH8_SPP, PATH8_STEPS, PATH8_BATCH = 64, 32, 300, 4
 REPEAT_STEPS = 30          # path 8c's bit-for-bit repeat of the first steps
 # path 8b's bounds on the trainable gradients, each tensor's largest
@@ -2628,7 +2696,7 @@ GRAD_CARD_CPU, GRAD_EXACT = 4e-3, 4e-3
 def train_path(torch, _lib):
     """Path 8, MaterialNet training: (a) the device trainer's
     ``render_dataset`` (64 tuples at 224x336, 32 spp, on the card; A, B,
-    C, D, D′ and E must launch, B′, C′ and ``compact_sel`` must not); (b)
+    C, D, H and E must launch, B′, C′ and ``compact_sel`` must not); (b)
     one step of the frozen recipe of the reduced net, card against CPU;
     (c) the device trainer's step for 300 steps, timed; (d) its f16
     checkpoint through ``MatNetInference``; (e) ``generate`` and ``train``
@@ -3038,7 +3106,7 @@ def disk_route(torch, _lib):
         _, launches, sec = _drive(torch, _lib, lambda: generate(
             tmp, 2, 2, 70, 98, 8, seed=SEED))
         _path8_counters(launches, ("shade_bounce_fwd", "row_gather",
-                                   "env_sample_dir", "env_pdf_dir",
+                                   "env_sample_dir", "bounce_record",
                                    "env_lookup_bilinear"), "generate")
         log(f"  generate {sec:.2f} s")
         params = MaterialNet(
@@ -3081,9 +3149,9 @@ BENCH_ARGS = ["--res", str(BENCH_RES), "--fresh-iters", "2",
 STEP_KERNELS = ("march_pair", "shade_bounce_fwd", "shade_bounce_bwd",
                 "row_gather", "row_scatter_add", "row_scatter_add_bf16",
                 "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
-                "env_pdf_dir", "env_lookup_bilinear", "threefry_draw")
+                "bounce_record", "env_lookup_bilinear", "threefry_draw")
 RELIGHT_KERNELS = ("march_pair", "shade_bounce_fwd", "row_gather",
-                   "env_sample_dir", "env_pdf_dir", "env_lookup_bilinear",
+                   "env_sample_dir", "bounce_record", "env_lookup_bilinear",
                    "threefry_draw")
 
 

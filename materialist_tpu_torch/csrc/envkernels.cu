@@ -5,6 +5,8 @@
 //   env_sample_dir          (_env_sample_tpu, _make_sample_kernel)
 //   env_pdf_dir             (_env_pdf_tpu, _make_pdf_kernel)
 //   env_lookup_bilinear_tpu (_env_lookup_tpu, _make_lookup_kernel)
+// and, with no TPU kernel behind it, bounce_record: a fused bounce's trace
+// record after the march (see its comment below).
 //
 // Bound on the H100: device-memory bytes. Each query reads 8-12 bytes and
 // writes 4-16; the tables (<= 2*64 + 2*64*64 floats, or a 64x64x3 emitter)
@@ -46,6 +48,8 @@
 // measured slower at every main-path shape on an NVIDIA H100 80GB HBM3 at
 // 700 W (0.0107 against 0.0089 ms at 1,048,576 queries; PERF.md section 6).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -217,6 +221,32 @@ env_sample_dir_kernel(const float* __restrict__ m_cdf,
   }
 }
 
+// The pdf tables (h marginal, h*w conditional floats) into shared memory.
+__device__ __forceinline__ void stage_pdf_tables(float* s_mpdf, float* s_cpdf,
+                                                 const float* m_pdf,
+                                                 const float* c_pdf, int h,
+                                                 int w) {
+  for (int i = threadIdx.x; i < h; i += blockDim.x) s_mpdf[i] = m_pdf[i];
+  for (int i = threadIdx.x; i < h * w; i += blockDim.x) s_cpdf[i] = c_pdf[i];
+  __syncthreads();
+}
+
+// Kernel D′'s density at a direction d: a = atan2f(d.x, -d.z), theta =
+// acosf of d.y clamped to [-1, 1].
+__device__ __forceinline__ float pdf_at_dir(float a, float theta,
+                                            const float* s_mpdf,
+                                            const float* s_cpdf, int h,
+                                            int w) {
+  const float phi = a / kTwoPi;
+  const float u = (phi - floorf(phi)) * (float)w;
+  const float v = theta / kPi * (float)h;
+  const int ui = min(max((int)u, 0), w - 1);
+  const int vi = min(max((int)v, 0), h - 1);
+  const float st = fmaxf(sinf(theta), 1e-6f);
+  return ((float)(h * w) * (s_cpdf[vi * w + ui] * s_mpdf[vi])) /
+         (kTwoPi2 * st);
+}
+
 __global__ void env_pdf_dir_kernel(const float* __restrict__ m_pdf,
                                    const float* __restrict__ c_pdf,
                                    const float* __restrict__ d,
@@ -225,21 +255,167 @@ __global__ void env_pdf_dir_kernel(const float* __restrict__ m_pdf,
   extern __shared__ float sm[];
   float* s_mpdf = sm;
   float* s_cpdf = sm + h;
-  for (int i = threadIdx.x; i < h; i += blockDim.x) s_mpdf[i] = m_pdf[i];
-  for (int i = threadIdx.x; i < h * w; i += blockDim.x) s_cpdf[i] = c_pdf[i];
-  __syncthreads();
+  stage_pdf_tables(s_mpdf, s_cpdf, m_pdf, c_pdf, h, w);
   for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < m;
        q += gridDim.x * blockDim.x) {
     const float dx = d[3 * q], dy = d[3 * q + 1], dz = d[3 * q + 2];
-    const float phi = atan2f(dx, -dz) / kTwoPi;
-    const float u = (phi - floorf(phi)) * (float)w;
-    const float theta = acosf(fminf(fmaxf(dy, -1.f), 1.f));
-    const float v = theta / kPi * (float)h;
-    const int ui = min(max((int)u, 0), w - 1);
-    const int vi = min(max((int)v, 0), h - 1);
-    const float st = fmaxf(sinf(theta), 1e-6f);
-    pdf[q] = ((float)(h * w) * (s_cpdf[vi * w + ui] * s_mpdf[vi])) /
-             (kTwoPi2 * st);
+    pdf[q] = pdf_at_dir(atan2f(dx, -dz), acosf(fminf(fmaxf(dy, -1.f), 1.f)),
+                        s_mpdf, s_cpdf, h, w);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bounce_record: the fused shade's record of one bounce, written after the
+// march (render/shader.py::_trace_chunk_paths in fused mode). Per row it
+// reads the lobe direction wi, the NEE direction wi_e and its pdf, the
+// hit and shadowed flags, the alive flag and the shading normal (both
+// through their strides: bounce 0 broadcasts them over the samples), and
+// writes
+//   aux  (5 bf16): normalize9(bf16(wi)), alive & !shadowed, alive & !hit
+//   recb (13 bf16): pdf_e, D′'s pdf of wi, wi_e, du dv of wi_e's and of
+//                   wi's bilinear taps, u0 v0 of wi_e's and of wi's taps
+//   nrm  (3 f16): the normal
+// bit for bit as the plain version (ops/kernels/envkernels.py::
+// bounce_record_plain, a chain of PyTorch operations) writes them on the
+// card. So each step rounds where that operation does: a division by a
+// Python scalar is PyTorch's multiplication by the f32 reciprocal
+// (inv_two_pi, inv_pi), torch.clamp keeps a NaN, Σ v² over three columns
+// adds the first and the third, then the second (PyTorch's reduction
+// splits three columns over two lanes), and the casts round to nearest
+// even. D′'s pdf is pdf_at_dir, which divides; its atan2f and acosf are
+// those of the taps of wi. A warp's records go out through a shared stage
+// as whole 4-byte words.
+
+constexpr int kAuxCols = 5, kRecbCols = 13, kNrmCols = 3;
+constexpr int kRecCols = kAuxCols + kRecbCols + kNrmCols;  // 2 bytes each
+
+__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// ops/kernels/envkernels.py::bilinear_coords of a direction whose
+// atan2(x, -z) is a and whose acos(clamped y) is theta.
+__device__ __forceinline__ void bilinear_taps(float a, float theta, int h,
+                                              int w, float inv_two_pi,
+                                              float inv_pi, int& u0i,
+                                              int& v0i, float& du,
+                                              float& dv) {
+  const float phi = a * inv_two_pi;
+  const float u = (phi - floorf(phi)) * (float)w;
+  const float v = (theta * inv_pi) * (float)h;
+  const float uf = u - 0.5f, vf = v - 0.5f;
+  const float u0 = floorf(uf), v0 = floorf(vf);
+  du = uf - u0;
+  dv = vf - v0;
+  const int r = (int)u0 % w;
+  u0i = r < 0 ? r + w : r;                 // torch.remainder, w > 0
+  v0i = min(max((int)v0, 0), h - 1);
+}
+
+// Of row q of (m, 3) directions d: atan2f(x, -z), y and acosf(y clamped).
+__device__ __forceinline__ void dir_angles(const float* __restrict__ d,
+                                           int q, float& a, float& y,
+                                           float& theta) {
+  const float dx = d[3 * (size_t)q], dz = d[3 * (size_t)q + 2];
+  y = d[3 * (size_t)q + 1];
+  a = atan2f(dx, -dz);
+  theta = acosf(clamp_keep_nan(y, -1.f, 1.f));
+}
+
+__global__ void __launch_bounds__(kThreads) bounce_record_kernel(
+    const float* __restrict__ m_pdf, const float* __restrict__ c_pdf,
+    const float* __restrict__ wi, const float* __restrict__ wi_e,
+    const float* __restrict__ pdf_e, const unsigned char* __restrict__ hit,
+    const unsigned char* __restrict__ shadowed,
+    const unsigned char* __restrict__ alive, long long alive_s0,
+    long long alive_s1, const float* __restrict__ nrm, long long nrm_s0,
+    long long nrm_s1, long long nrm_sc, unsigned short* __restrict__ aux,
+    unsigned short* __restrict__ recb, unsigned short* __restrict__ nrm16,
+    int m, int n1, int h, int w, float inv_two_pi, float inv_pi) {
+  extern __shared__ float sm[];
+  float* s_mpdf = sm;
+  float* s_cpdf = sm + h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the stage: 16-byte aligned after the tables, kRecCols halves a row
+  unsigned short* stage =
+      reinterpret_cast<unsigned short*>(sm + ((h + h * w + 3) & ~3)) +
+      warp * 32 * kRecCols;
+  unsigned short* st_aux = stage;
+  unsigned short* st_recb = stage + 32 * kAuxCols;
+  unsigned short* st_nrm = st_recb + 32 * kRecbCols;
+  stage_pdf_tables(s_mpdf, s_cpdf, m_pdf, c_pdf, h, w);
+  const int step = gridDim.x * blockDim.x;
+  for (int q0 = blockIdx.x * blockDim.x + warp * 32; q0 < m; q0 += step) {
+    const int q = q0 + lane;
+    if (q < m) {
+      const int i = q / n1, j = q - i * n1;
+      float a, y, theta;
+      dir_angles(wi_e, q, a, y, theta);
+      int u0e, v0e;
+      float due, dve;
+      bilinear_taps(a, theta, h, w, inv_two_pi, inv_pi, u0e, v0e, due, dve);
+      dir_angles(wi, q, a, y, theta);
+      int u0b, v0b;
+      float dub, dvb;
+      bilinear_taps(a, theta, h, w, inv_two_pi, inv_pi, u0b, v0b, dub, dvb);
+      // D′ clamps a NaN to -1
+      const float pdf_at = pdf_at_dir(
+          a, y != y ? acosf(-1.f) : theta, s_mpdf, s_cpdf, h, w);
+      float b[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        b[c] = __bfloat162float(__float2bfloat16_rn(wi[3 * (size_t)q + c]));
+      const float sq0 = b[0] * b[0], sq1 = b[1] * b[1], sq2 = b[2] * b[2];
+      const float den = clamp_keep_nan(sqrtf((sq0 + sq2) + sq1), 1e-9f,
+                                       INFINITY);
+      const bool live = alive[i * alive_s0 + j * alive_s1] != 0;
+      unsigned short* ra = st_aux + lane * kAuxCols;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ra[c] = bf16_bits(b[c] / den);
+      ra[3] = bf16_bits(live && !shadowed[q] ? 1.f : 0.f);
+      ra[4] = bf16_bits(live && !hit[q] ? 1.f : 0.f);
+      unsigned short* rb = st_recb + lane * kRecbCols;
+      rb[0] = bf16_bits(pdf_e[q]);
+      rb[1] = bf16_bits(pdf_at);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) rb[2 + c] = bf16_bits(wi_e[3 * (size_t)q + c]);
+      rb[5] = bf16_bits(due);
+      rb[6] = bf16_bits(dve);
+      rb[7] = bf16_bits(dub);
+      rb[8] = bf16_bits(dvb);
+      // int32 -> int16 -> bf16, as the plain version's casts
+      rb[9] = bf16_bits((float)(short)u0e);
+      rb[10] = bf16_bits((float)(short)v0e);
+      rb[11] = bf16_bits((float)(short)u0b);
+      rb[12] = bf16_bits((float)(short)v0b);
+      const float* nq = nrm + i * nrm_s0 + j * nrm_s1;
+      unsigned short* rn = st_nrm + lane * kNrmCols;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        rn[c] = __half_as_ushort(__float2half_rn(nq[c * nrm_sc]));
+    }
+    __syncwarp();
+    const int rows = min(32, m - q0);
+    const unsigned short* src[3] = {st_aux, st_recb, st_nrm};
+    unsigned short* dst[3] = {aux + (size_t)q0 * kAuxCols,
+                              recb + (size_t)q0 * kRecbCols,
+                              nrm16 + (size_t)q0 * kNrmCols};
+    const int cols[3] = {kAuxCols, kRecbCols, kNrmCols};
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      // q0 is a multiple of 32, so a warp's records start on a whole
+      // word; an odd half at the end of the last warp goes alone
+      const int halves = rows * cols[t];
+      const unsigned* s32 = reinterpret_cast<const unsigned*>(src[t]);
+      unsigned* d32 = reinterpret_cast<unsigned*>(dst[t]);
+      for (int k = lane; k < halves / 2; k += 32) d32[k] = s32[k];
+      if ((halves & 1) && lane == 0) dst[t][halves - 1] = src[t][halves - 1];
+    }
+    __syncwarp();
   }
 }
 
@@ -330,6 +506,27 @@ extern "C" int env_pdf_dir_launch(const float* m_pdf, const float* c_pdf,
   const size_t smem = sizeof(float) * (h + h * w);
   env_pdf_dir_kernel<<<grid_for(m), kThreads, smem, stream>>>(
       m_pdf, c_pdf, d, pdf, m, h, w);
+  return (int)cudaGetLastError();
+}
+
+// alive_s*, nrm_s*: element strides of the alive flags over the two
+// leading axes (n0 = m / n1, n1) and of the normal over them and its
+// column; aux, recb, nrm16: (m, 5), (m, 13) bf16 and (m, 3) f16.
+extern "C" int bounce_record_launch(
+    const float* m_pdf, const float* c_pdf, const float* wi,
+    const float* wi_e, const float* pdf_e, const unsigned char* hit,
+    const unsigned char* shadowed, const unsigned char* alive,
+    long long alive_s0, long long alive_s1, const float* nrm,
+    long long nrm_s0, long long nrm_s1, long long nrm_sc,
+    unsigned short* aux, unsigned short* recb, unsigned short* nrm16, int m,
+    int n1, int h, int w, float inv_two_pi, float inv_pi,
+    cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((h + h * w + 3) & ~3) +
+                      sizeof(unsigned short) * kThreads * kRecCols;
+  bounce_record_kernel<<<grid_for(m), kThreads, smem, stream>>>(
+      m_pdf, c_pdf, wi, wi_e, pdf_e, hit, shadowed, alive, alive_s0,
+      alive_s1, nrm, nrm_s0, nrm_s1, nrm_sc, aux, recb, nrm16, m, n1, h, w,
+      inv_two_pi, inv_pi);
   return (int)cudaGetLastError();
 }
 

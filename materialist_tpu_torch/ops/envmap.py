@@ -28,6 +28,7 @@ SMALL_ENV_AXIS = 64
 
 dir_to_uv = ek.dir_to_uv
 uv_to_dir = ek.uv_to_dir
+bilinear_coords = ek.bilinear_coords
 
 
 class EnvmapSampler(NamedTuple):
@@ -47,20 +48,6 @@ class FlatEnvmapSampler(NamedTuple):
 
 def _is_small(h: int, w: int) -> bool:
     return h <= SMALL_ENV_AXIS and w <= SMALL_ENV_AXIS
-
-
-def bilinear_coords(d, h: int, w: int):
-    """Direction → bilinear tap coords (u0i, v0i int32, du, dv f32)."""
-    u, v = dir_to_uv(d, h, w)
-    uf = u - 0.5
-    vf = v - 0.5
-    u0 = torch.floor(uf)
-    v0 = torch.floor(vf)
-    du = uf - u0
-    dv = vf - v0
-    u0i = torch.remainder(u0.to(torch.int32), w)
-    v0i = torch.clamp(v0.to(torch.int32), 0, h - 1)
-    return u0i, v0i, du, dv
 
 
 class _LookupBilinearSmall(torch.autograd.Function):

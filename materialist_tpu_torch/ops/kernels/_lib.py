@@ -38,7 +38,7 @@ LAUNCHES = {name: 0 for name in (
     "row_gather", "row_scatter_add", "row_scatter_add_bf16",
     "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
     "env_pdf_dir", "env_lookup_bilinear", "onehot_gather", "vreg_gather",
-    "threefry_draw")}
+    "threefry_draw", "bounce_record")}
 
 # (name, shape tuple) -> launches; each wrapper says what its shape lists
 LAUNCHES_BY_SHAPE = {}
@@ -151,6 +151,8 @@ _SIGNATURES = {
     "onehot_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
     "vreg_gather_launch": [_P] * 3 + [_I] * 2 + [_P],
     "threefry_launch": [_P, _I, _L, _I, _I, _U, _U, _F, _F, _P],
+    "bounce_record_launch": ([_P] * 8 + [_L] * 2 + [_P] + [_L] * 3 + [_P] * 3
+                             + [_I] * 4 + [_F] * 2 + [_P]),
 }
 
 

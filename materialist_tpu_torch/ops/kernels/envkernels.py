@@ -1,12 +1,16 @@
-"""Envmap NEE sampling, pdf and bilinear fetch for small emitters.
+"""Envmap NEE sampling, pdf and bilinear fetch for small emitters, and
+the fused bounce's trace record.
 
 Kernels D (``env_sample_dir``), D′ (``env_pdf_dir``) and E
 (``env_lookup_bilinear``) of ``csrc/envkernels.cu``, which replace
-``materialist_tpu/ops/pallas/envkernels.py``. Each wrapper takes its
-plain PyTorch version for CPU tensors and launches the kernel for CUDA
-tensors; the plain versions follow ``materialist_tpu/ops/envmap.py``
-(``sample``, ``pdf_dir``, the small-map bilinear fetch) with plain
-indexing in place of one-hot contractions.
+``materialist_tpu/ops/pallas/envkernels.py``, and H (``bounce_record``),
+which writes a fused bounce's packed record after the march in one
+launch, with D′'s device code. Each wrapper takes its plain PyTorch
+version for CPU tensors and launches the kernel for CUDA tensors; the
+plain versions follow ``materialist_tpu/ops/envmap.py`` (``sample``,
+``pdf_dir``, the small-map bilinear fetch) with plain indexing in place
+of one-hot contractions, and ``bounce_record_plain`` the record that
+``materialist_tpu/render/shader.py`` packs for its fused shade.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import math
 
 import torch
 
+from materialist_tpu_torch.camera import norm
 from materialist_tpu_torch.ops.kernels import _lib
+from materialist_tpu_torch.utils import profiling as prof
 
 PI = math.pi
 ENV_AXIS_MAX = 64     # the kernels keep their tables in shared memory
@@ -80,6 +86,20 @@ def dir_to_uv(d, height: int, width: int):
     return u, v
 
 
+def bilinear_coords(d, h: int, w: int):
+    """Direction → bilinear tap coords (u0i, v0i int32, du, dv f32)."""
+    u, v = dir_to_uv(d, h, w)
+    uf = u - 0.5
+    vf = v - 0.5
+    u0 = torch.floor(uf)
+    v0 = torch.floor(vf)
+    du = uf - u0
+    dv = vf - v0
+    u0i = torch.remainder(u0.to(torch.int32), w)
+    v0i = torch.clamp(v0.to(torch.int32), 0, h - 1)
+    return u0i, v0i, du, dv
+
+
 def env_pdf_dir_plain(m_pdf, c_pdf, d):
     h, w = c_pdf.shape
     u, v = dir_to_uv(d, h, w)
@@ -104,6 +124,34 @@ def env_lookup_bilinear_plain(env, u0i, v0i, du, dv):
     acc = acc + du * (1.0 - dv) * flat[v0 * w + u1]
     acc = acc + (1.0 - du) * dv * flat[v1 * w + u0]
     return acc + du * dv * flat[v1 * w + u1]
+
+
+def bounce_record_plain(m_pdf, c_pdf, wi, wi_e, pdf_e, hit, shadowed,
+                        base_alive, nrm):
+    """A fused bounce's record: (aux (..., 5) bf16 = normalize9(bf16(wi))
+    | alive & ~shadowed | alive & ~hit; recb (..., 13) bf16 = pdf_e | D′'s
+    pdf of wi | wi_e | du, dv of wi_e's taps, of wi's | u0, v0 of wi_e's
+    taps, of wi's; nrm (..., 3) f16). wi, wi_e (..., 3), pdf_e (..., 1),
+    hit, shadowed (...); base_alive and nrm broadcast to them."""
+    h, w = c_pdf.shape
+    uv_e = bilinear_coords(wi_e, h, w)
+    pdf_at = env_pdf_dir(m_pdf, c_pdf, wi.contiguous())
+    uv_b = bilinear_coords(wi, h, w)
+    rec_uvi = torch.stack([uv_e[0], uv_e[1], uv_b[0], uv_b[1]],
+                          -1).to(torch.int16)
+    rec_uvf = torch.stack([uv_e[2], uv_e[3], uv_b[2], uv_b[3]],
+                          -1).to(torch.bfloat16)
+    win = wi.to(torch.bfloat16).to(torch.float32)
+    win = win / torch.clamp_min(norm(win), 1e-9)
+    tgt = win.shape[:-1]
+    gate_nee = (base_alive & ~shadowed).to(torch.float32)
+    gate_miss = (base_alive & ~hit).to(torch.float32)
+    aux = prof.cat([win, gate_nee[..., None], gate_miss[..., None]],
+                   -1).to(torch.bfloat16)
+    recb = prof.cat(
+        [pdf_e.to(torch.bfloat16), pdf_at.to(torch.bfloat16),
+         wi_e.to(torch.bfloat16), rec_uvf, rec_uvi.to(torch.bfloat16)], -1)
+    return aux, recb, nrm.expand(tgt + (3,)).to(torch.float16)
 
 
 # -------------------------------------------------------------- kernels
@@ -204,3 +252,65 @@ def env_lookup_bilinear(env, u0i, v0i, du, dv):
             m, h, w, _lib.stream_ptr(env)), "env_lookup_bilinear")
         _lib.count_launch("env_lookup_bilinear", (m, h, w))
     return out.reshape(*shape, 3)
+
+
+# PyTorch divides by a Python scalar on the card as a multiplication by its
+# f32 reciprocal; the record kernel's taps take the same factors
+_INV_TWO_PI = float(torch.tensor(1.0) / torch.tensor(2.0 * PI))
+_INV_PI = float(torch.tensor(1.0) / torch.tensor(PI))
+
+
+def _own_size(t) -> int:
+    """Elements of ``t`` that its strides reach (a broadcast counts once)."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+
+
+def bounce_record(m_pdf, c_pdf, wi, wi_e, pdf_e, hit, shadowed, base_alive,
+                  nrm):
+    """Kernel H: ``bounce_record_plain``'s (aux, recb, nrm) in one launch,
+    bit for bit. base_alive and nrm are read through their broadcast
+    strides."""
+    if wi.device.type == "cpu":
+        return bounce_record_plain(m_pdf, c_pdf, wi, wi_e, pdf_e, hit,
+                                   shadowed, base_alive, nrm)
+    h, w = c_pdf.shape
+    dev = wi.device
+    tgt = wi.shape[:-1]
+    if len(tgt) != 2:
+        raise ValueError(f"bounce_record: wi of shape {tuple(wi.shape)}, "
+                         "expected (n0, n1, 3)")
+    m = math.prod(tgt)
+    for name, t, dt, shp in (
+            ("m_pdf", m_pdf, torch.float32, (h,)),
+            ("c_pdf", c_pdf, torch.float32, (h, w)),
+            ("wi", wi, torch.float32, tgt + (3,)),
+            ("wi_e", wi_e, torch.float32, tgt + (3,)),
+            ("pdf_e", pdf_e, torch.float32, tgt + (1,)),
+            ("hit", hit, torch.bool, tgt),
+            ("shadowed", shadowed, torch.bool, tgt)):
+        _lib.expect(t, name, dt, shp, dev)
+    if h > ENV_AXIS_MAX or w > ENV_AXIS_MAX:
+        raise ValueError(f"bounce_record: tables of {h}x{w}, at most "
+                         f"{ENV_AXIS_MAX} a side")
+    # read through their strides: a broadcast keeps its zero stride
+    alive = base_alive.expand(tgt)
+    nrm2 = nrm.expand(tgt + (3,))
+    for name, t, dt in (("base_alive", alive, torch.bool),
+                        ("nrm", nrm2, torch.float32)):
+        if t.dtype != dt or t.device != dev:
+            raise TypeError(f"{name}: {t.dtype} on {t.device}, expected "
+                            f"{dt} on {dev}")
+    aux = torch.empty(tgt + (5,), dtype=torch.bfloat16, device=dev)
+    recb = torch.empty(tgt + (13,), dtype=torch.bfloat16, device=dev)
+    nrm16 = torch.empty(tgt + (3,), dtype=torch.float16, device=dev)
+    if m:
+        _lib.check(_lib.lib().bounce_record_launch(
+            m_pdf.data_ptr(), c_pdf.data_ptr(), wi.data_ptr(),
+            wi_e.data_ptr(), pdf_e.data_ptr(), hit.data_ptr(),
+            shadowed.data_ptr(), alive.data_ptr(), *alive.stride(),
+            nrm2.data_ptr(), *nrm2.stride(), aux.data_ptr(),
+            recb.data_ptr(), nrm16.data_ptr(), m, tgt[1], h, w,
+            _INV_TWO_PI, _INV_PI, _lib.stream_ptr(wi)), "bounce_record")
+        _lib.count_launch("bounce_record", (m, h, w, _own_size(alive),
+                                            _own_size(nrm2) // 3))
+    return aux, recb, nrm16

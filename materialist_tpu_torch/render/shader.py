@@ -7,8 +7,9 @@ per-chunk records; ``shade_from_records`` replays them and evaluates the
 differentiable radiance. Primary visibility is the pixel grid, secondary
 visibility is the screen-space march (kernels A/A′, or ``march_mip`` over
 the table-lookup kernel F for ``march_impl="mip"``), the per-vertex shade
-of the production configuration is the fused bounce (kernels B/B′), NEE
-samples and pdfs come from kernels D/D′, the sky from kernel E. With
+of the production configuration is the fused bounce (kernels B/B′), whose
+records kernel H writes after the march, NEE samples come from kernel D
+and pdfs from D′ (in H for the fused bounce), the sky from kernel E. With
 ``compact_caps`` the dead rays are dropped between bounces and the live
 ones move through the row gather and scatter-add (kernels C/C′).
 
@@ -33,6 +34,7 @@ from materialist_tpu_torch import rng
 from materialist_tpu_torch.camera import Camera, norm
 from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.ops.kernels import march as mk
+from materialist_tpu_torch.ops.kernels.envkernels import bounce_record
 from materialist_tpu_torch.ops.kernels.gather import onehot_gather
 from materialist_tpu_torch.ops.kernels.rowops import (
     _f32_exact_join, _f32_exact_split, compact_sel, gather_coherent_diff,
@@ -456,16 +458,28 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
                         hit = do_march(pos, wi)
                         shadowed = torch.zeros(wi.shape[:-1], dtype=torch.bool,
                                                device=dev)
-                with _TRACE_SAMPLE:
-                    if cfg.nee:
-                        uv_e = em.bilinear_coords(wi_e, eh, ew)
-                        pdf_at = em.pdf_dir(env_sampler, wi)
-                    uv_b = em.bilinear_coords(wi, eh, ew)
-                with _TRACE_RECORDS:
-                    records.append(_bounce_record(
-                        cfg, fused, base_alive, hit, shadowed, nrm, wi,
-                        (wi_e, pdf_e, uv_e, pdf_at) if cfg.nee else None, uv_b,
-                        rec_blob, rec_nrm, extras))
+                if fused:
+                    # the fused shade's packed detached inputs, in one
+                    # launch on the card (kernel H); the march chain keeps
+                    # the exact f32 lobe direction
+                    with _TRACE_RECORDS:
+                        aux, recb, rec_nrmf = bounce_record(
+                            env_sampler.m_pdf, env_sampler.c_pdf, wi, wi_e,
+                            pdf_e, hit.hit, shadowed, base_alive, nrm)
+                        records.append(BounceRecord(
+                            shadowed, hit.hit, hit.idx, blob=rec_blob,
+                            nrm=rec_nrmf, aux=aux, recb=recb, extras=extras))
+                else:
+                    with _TRACE_SAMPLE:
+                        if cfg.nee:
+                            uv_e = em.bilinear_coords(wi_e, eh, ew)
+                            pdf_at = em.pdf_dir(env_sampler, wi)
+                        uv_b = em.bilinear_coords(wi, eh, ew)
+                    with _TRACE_RECORDS:
+                        records.append(_bounce_record(
+                            shadowed, hit, wi,
+                            (wi_e, pdf_e, uv_e, pdf_at) if cfg.nee else None,
+                            uv_b, rec_blob, rec_nrm, extras))
 
                 with _TRACE_COMPACT:
                     if do_compact and b < cfg.max_depth - 2:
@@ -507,11 +521,11 @@ def _trace_chunk_paths(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
         return tuple(records)
 
 
-def _bounce_record(cfg, fused, base_alive, hit, shadowed, nrm, wi, nee, uv_b,
-                   rec_blob, rec_nrm, extras) -> BounceRecord:
-    """One bounce's record in its stored layouts: the fused shade's packed
-    detached inputs, or the generic fields. ``nee``: (wi_e, pdf_e, uv_e,
-    pdf_at) of the NEE sample, or None."""
+def _bounce_record(shadowed, hit, wi, nee, uv_b, rec_blob, rec_nrm,
+                   extras) -> BounceRecord:
+    """One bounce's generic record (the fused shade's comes from
+    ``bounce_record``). ``nee``: (wi_e, pdf_e, uv_e, pdf_at) of the NEE
+    sample, or None."""
     rec_wi = wi.to(torch.bfloat16)
     if nee is not None:
         wi_e, pdf_e, uv_e, pdf_at = nee
@@ -524,22 +538,6 @@ def _bounce_record(cfg, fused, base_alive, hit, shadowed, nrm, wi, nee, uv_b,
         rec_uvf = torch.stack([uv_b[2], uv_b[3]], -1)
     rec_uvi = rec_uvi.to(torch.int16)
     rec_uvf = rec_uvf.to(torch.bfloat16)
-    if fused:
-        # the fused shade's packed detached inputs, assembled once; the
-        # march chain keeps the exact f32 lobe direction
-        win = _normalize9(rec_wi.to(torch.float32))
-        tgt = win.shape[:-1]
-        gate_nee = (base_alive & ~shadowed).to(torch.float32)
-        gate_miss = (base_alive & ~hit.hit).to(torch.float32)
-        rec_nrmf = nrm.expand(tgt + (3,)).to(torch.float16)
-        rec_aux = prof.cat([win, gate_nee[..., None], gate_miss[..., None]],
-                           -1).to(torch.bfloat16)
-        rec_recb = prof.cat(
-            [pdf_e.to(torch.bfloat16), rec_pdf_at, wi_e.to(torch.bfloat16),
-             rec_uvf, rec_uvi.to(torch.bfloat16)], -1)
-        return BounceRecord(shadowed, hit.hit, hit.idx, blob=rec_blob,
-                            nrm=rec_nrmf, aux=rec_aux, recb=rec_recb,
-                            extras=extras)
     return BounceRecord(
         shadowed, hit.hit, hit.idx, rec_blob, rec_nrm,
         wi_e.to(torch.bfloat16) if nee is not None else None,

@@ -814,3 +814,135 @@ def test_threefry_randint_and_bernoulli_equal_the_cpu(card):
             for p in (0.5, 0.1):
                 _same_bits(rng.bernoulli(k, p, shape, card),
                            rng.bernoulli(k, p, shape))
+
+
+# ---- H: the fused bounce's trace record
+
+# the poles, both sides of the u-seam (atan2 near ±π) and of u = 0, and a
+# direction whose y clamps
+RECORD_EDGE_DIRS = [[0, 1, 0], [0, -1, 0], [-1e-7, 0, 1], [1e-7, 0, 1],
+                    [-1e-7, 0.6, 0.8], [1e-7, -0.6, 0.8], [-1e-7, 0, -1],
+                    [1e-7, 0, -1], [0, 0.5, 0.5], [0, 1.0000001, 0],
+                    [1e-30, 0.999999, 1e-3]]
+
+
+def _record_inputs(card, lead, alive, nrm, seed):
+    """Seeded record inputs on the card over leading axes ``lead``: unit
+    lobe and NEE directions with the edge directions at both ends, NEE
+    pdfs, hit and shadowed flags; ``alive`` and ``nrm`` as given (the
+    trace's broadcasts and views)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    m = math.prod(lead)
+    wi = torch.nn.functional.normalize(
+        torch.randn((m, 3), generator=g, device=card), dim=-1)
+    wi_e = torch.nn.functional.normalize(
+        torch.randn((m, 3), generator=g, device=card), dim=-1)
+    edge = torch.tensor(RECORD_EDGE_DIRS, device=card)
+    wi[:len(edge)] = edge
+    wi[-len(edge):] = edge.flip(0)
+    wi_e[:len(edge)] = edge.flip(0)
+    pdf_e = torch.rand((m, 1), generator=g, device=card) * 4.0
+    hit = torch.rand((m,), generator=g, device=card) < 0.6
+    shadowed = torch.rand((m,), generator=g, device=card) < 0.3
+    return (wi.reshape(lead + (3,)), wi_e.reshape(lead + (3,)),
+            pdf_e.reshape(lead + (1,)), hit.reshape(lead),
+            shadowed.reshape(lead), alive, nrm)
+
+
+def _unit(card, g, shape):
+    return torch.nn.functional.normalize(
+        torch.randn(shape, generator=g, device=card), dim=-1)
+
+
+def _record_case(card, case):
+    """raw1024's bounce 0 on the full grid (alive flags and normals a
+    broadcast over the 8 samples) and its compacted bounces at 1,048,576
+    and 524,288 rows (the padding rows dead, the normals a strided slice
+    of the fetched side table), and the relight's jittered bounce 0 (8 ×
+    262,144, everything full, invalid pixels dead)."""
+    g = torch.Generator(device=card).manual_seed(31)
+    if case == "full_grid":
+        n = 1048576
+        alive = (torch.rand((n,), generator=g, device=card) < 0.9).expand(
+            8, n)
+        return _record_inputs(card, (8, n), alive, _unit(card, g, (n, 3)),
+                              32)
+    if case == "relight":
+        n = 262144
+        alive = torch.rand((8, n), generator=g, device=card) < 0.85
+        return _record_inputs(card, (8, n), alive,
+                              _unit(card, g, (8, n, 3)), 33)
+    cap = {"compacted_1m": 1048576, "compacted_512k": 524288}[case]
+    alive = (torch.arange(cap, device=card) < cap - 12345)[None]
+    fetched = torch.randn((1, cap, 10), generator=g, device=card)
+    fetched[..., 5:8] = _unit(card, g, (1, cap, 3))
+    return _record_inputs(card, (1, cap), alive, fetched[..., 5:8], 34)
+
+
+def _record_bits_equal(got, want):
+    names = ("aux", "recb", "nrm")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        diff = (a.view(torch.int16) != b.view(torch.int16))
+        cols = diff.reshape(-1, a.shape[-1]).sum(0).tolist()
+        assert not any(cols), f"{name}: rows differing by column {cols}"
+
+
+@pytest.mark.parametrize("case", ["full_grid", "compacted_1m",
+                                  "compacted_512k", "relight"])
+def test_bounce_record_bit_equal_to_its_plain_version(card, case):
+    """H against its plain version run on the card (the composition the
+    trace ran before: the PyTorch taps, D′, the casts and cats), bit for
+    bit, at raw1024's three row counts and the relight's."""
+    from materialist_tpu_torch.ops.kernels import _lib
+    smp = em.build_sampler(
+        (torch.rand((16, 32, 3), device=card,
+                    generator=torch.Generator(card).manual_seed(9)) + 0.05)
+        ** 4)
+    args = _record_case(card, case)
+    _lib.reset_launches()
+    got = ek.bounce_record(smp.m_pdf, smp.c_pdf, *args)
+    m = args[0].numel() // 3
+    # the broadcast flags and normals count at their own sizes
+    own = (m // 8, m // 8) if case == "full_grid" else (m, m)
+    assert _lib.LAUNCHES_BY_SHAPE == {("bounce_record", (m, 16, 32) + own): 1}
+    _lib.reset_launches()
+    want = ek.bounce_record_plain(smp.m_pdf, smp.c_pdf, *args)
+    assert _lib.LAUNCHES["bounce_record"] == 0
+    assert _lib.LAUNCHES["env_pdf_dir"] == 1
+    _record_bits_equal(got, want)
+
+
+def test_bounce_record_trace_chunk_equals_the_plain_path(card, scene,
+                                                         monkeypatch):
+    """A compacted fused chunk's records on the card with H equal those of
+    the plain path (the same trace with ``bounce_record_plain``), field by
+    field; H launches once a bounce and D′ not at all."""
+    from materialist_tpu_torch.ops.kernels import _lib
+    cam, gb, mats, env = scene
+    cfg = shader.RenderConfig(spp=8, chunk=4, compact_caps=(0.5, 0.25))
+    key = rng.key(21)
+    _lib.reset_launches()
+    got = shader._trace_chunk_paths(key, cfg, cam, gb, mats, env)
+    assert _lib.LAUNCHES["bounce_record"] == cfg.max_depth - 1 == 3
+    assert _lib.LAUNCHES["env_pdf_dir"] == 0
+    monkeypatch.setattr(shader, "bounce_record", ek.bounce_record_plain)
+    _lib.reset_launches()
+    want = shader._trace_chunk_paths(key, cfg, cam, gb, mats, env)
+    assert _lib.LAUNCHES["bounce_record"] == 0
+    assert len(got) == len(want) == 3
+    for b, (rg, rw) in enumerate(zip(got, want)):
+        for field in shader.BounceRecord._fields:
+            x, y = getattr(rg, field), getattr(rw, field)
+            if field == "extras":
+                assert (x is None) == (y is None), (b, field)
+                for xe, ye in zip(x or (), y or ()):
+                    assert torch.equal(xe, ye), (b, field)
+            elif x is None or y is None:
+                assert x is None and y is None, (b, field)
+            else:
+                assert x.dtype == y.dtype and x.shape == y.shape, (b, field)
+                if x.is_floating_point():
+                    bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+                    x, y = x.view(bits), y.view(bits)
+                assert torch.equal(x, y), (b, field)
