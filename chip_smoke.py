@@ -43,9 +43,12 @@ minutes on an NVIDIA H100, the kernels' build included). It
    and ``randint`` and ``bernoulli`` on the card the CPU's; each mode is
    timed beside its byte bound and its plain version, and must launch on
    its own path, counted by mode from its launch shape: the lattice on
-   the main path, the bits and uniforms in path 8c. This runs after
-   the main path, whose launches by shape it prints first, and path 10,
-   on neither of which the bounce's backward may run that contraction;
+   the main path, the bits and uniforms in path 8c. A bound is
+   ``perfbench/roofline/<counter>.py``'s at the counted launch shape
+   where that file has one (not A, A′, F, G, C's sectors, C′ in place).
+   This runs after the main path, whose launches by shape it prints
+   first, and path 10, on neither of which the bounce's backward may run
+   that contraction;
 3. drives the paths, each with the launch counters set to 0 just before
    and read just after:
    - path 1, the main path: ``optimize`` at 512²×64 spp on the in-repo
@@ -130,23 +133,16 @@ import sys
 import tempfile
 import time
 
+from perfbench import files as perf_files
+from perfbench.metrics._common import PEAK_BYTES_PER_S, PEAK_FP32_PER_S
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DEV = "cuda"
-H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12        # FP32 outside the tensor cores
 H100_TF32_FLOPS = 495e12       # TF32 on the tensor cores, dense
+# A's and A′'s own bound: the counter carries the rays, not the march
+# steps they need, so perfbench/roofline/march_*.py has none
 FLOPS_PER_MARCH_STEP = 24      # project + compare + updates, per step
-FLOPS_SHADE_FWD = 260          # per vertex: 2 BRDF evals, 2 fetches, MIS
-FLOPS_SHADE_BWD = 520          # per vertex: forward replay + adjoint
-FLOPS_ENV_TAPS = 60            # per vertex: 2 looks x (4 weights, 12 taps)
-# per hashed value: Threefry-2x32's 2 + 20 x 3 + 5 x 2 adds, rotations and
-# xors, and the xor of its two words, each counted once
-OPS_THREEFRY = 73
-# per row of a fused bounce's record (H): the taps of two directions (an
-# atan2, an acos and some 12 more operations each), D′'s pdf (60 with the
-# sin), the normalisation (10) and the casts, each counted once: a floor
-OPS_RECORD = 120
 # threefry_draw's modes, the fourth field of its launch shape
 DRAW_MODES = ("bits", "uniform", "lattice")
 LOG = []
@@ -155,17 +151,6 @@ TF32_DEFAULTS = {}             # PyTorch's own TF32 flags, read at start-up
 NO_GRAD_NONE_OF = ("shade_bounce_bwd", "row_scatter_add",
                    "row_scatter_add_bf16", "row_scatter_add_coherent",
                    "compact_sel")
-
-
-def record_bytes(shape):
-    """H's bytes at its launch shape (rows, envmap h, w, the alive flags'
-    own elements, the normals' own rows): wi, wi_e (12 B each), pdf_e (4),
-    hit and shadowed (1 each) read a row, the flags (1 B) and normals (12)
-    at their own sizes, the pdf tables once; aux 5 × 2, recb 13 × 2 and
-    the f16 normal 3 × 2 B written a row."""
-    rows, h, w, n_alive, n_nrm = shape
-    return (rows * (12 + 12 + 4 + 1 + 1 + (5 + 13 + 3) * 2) + n_alive
-            + 12 * n_nrm + 4 * (h + h * w))
 
 
 def log(*a):
@@ -264,9 +249,19 @@ def _device_events(prof):
 
 
 def bound(bytes_moved, flops):
-    t_b = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_o = flops / H100_FP32_FLOPS * 1e3
+    """(ms, "bytes" | "operations"): the larger of the two at the card's
+    peaks, ``perfbench/metrics/_common.py``'s."""
+    t_b = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FP32_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def roofline(counter, shape):
+    """A launch's bound at the shape its launch counter records, from
+    ``perfbench/roofline/<counter>.py``, the one home of a kernel's
+    bytes and operations; None where that file has no bound for it."""
+    b = perf_files.load("roofline", counter).bound(tuple(shape))
+    return None if b is None else bound(*b)
 
 
 def main():
@@ -680,11 +675,12 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     def dev_ms(fn):
         return cuda_ms(fn, device=True)
 
-    def entry(name, src, replaces, ok, err, ms, plain_ms, bytes_moved,
-              flops, library_ms=None, path="main", counter=None, **more):
-        """``path``: the drive whose launch count the entry reports;
-        ``counter``: its key in ``_lib.LAUNCHES`` (default: its name)."""
-        b_ms, b_by = bound(bytes_moved, flops)
+    def entry(name, src, replaces, ok, err, ms, plain_ms, b,
+              library_ms=None, path="main", counter=None, **more):
+        """``b``: the headline's (bound ms, by); ``path``: the drive whose
+        launch count the entry reports; ``counter``: its key in
+        ``_lib.LAUNCHES`` (default: its name)."""
+        b_ms, b_by = b
         out.append(dict(name=name, route="cuda",
                         source="materialist_tpu_torch/csrc/" + src,
                         replaces=rel + replaces if replaces else None,
@@ -837,31 +833,30 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     del inp_b
     entry("march_pair", "march_pair.cu", "march_kernel.py:505",
           worst["ok"] and all(x.pop("ok") for x in a_shapes + a_10),
-          worst["t_err"], worst["ms"], pms, worst["bytes"],
-          worst["steps"] * FLOPS_PER_MARCH_STEP, by_shape=a_shapes,
-          by_shape_path10=a_10, steps_needed=worst["steps"],
+          worst["t_err"], worst["ms"], pms,
+          bound(worst["bytes"], worst["steps"] * FLOPS_PER_MARCH_STEP),
+          by_shape=a_shapes, by_shape_path10=a_10, steps_needed=worst["steps"],
           steps_full=worst["full"], worst_case_1024=a_big)
 
     def shape_rows(counter, case_of):
         """One row per main-path shape of ``counter``, and one per path-10
         shape: (main rows, path-10 rows). case_of(shape, trace) gives
-        dict(run=the kernel call, check=() -> (ok, max_abs_err),
-        bytes=..., flops=...)."""
+        dict(run=the kernel call, check=() -> (ok, max_abs_err))."""
         out_rows = []
         for tr, shapes, where in (
                 (tr_main, shapes_of(counter), "main"),
                 (tr_10, path10_shapes(counter), "path 10")):
-            out_rows.append([case_row(case_of(shp, tr), shp, count,
-                                      f"{where}: {counter}")
+            out_rows.append([case_row(case_of(shp, tr), counter, shp,
+                                      count, f"{where}: {counter}")
                              for shp, count in shapes])
         return out_rows
 
-    def case_row(c, shp, count, what):
-        """Check and time one case; ``c["extra"]``, where given, adds
-        more timed columns to its row."""
+    def case_row(c, counter, shp, count, what):
+        """Check and time one case of ``counter`` at launch shape ``shp``;
+        ``c["extra"]``, where given, adds more timed columns to its row."""
         ok, err = c["check"]()
         ms = dev_ms(c["run"])
-        b_ms, b_by = bound(c["bytes"], c["flops"])
+        b_ms, b_by = roofline(counter, shp)
         row = dict(shape=list(shp), launches=count, ok=ok, max_abs_err=err,
                    ms=ms, device_ms=ms.device_ms, bound_ms=b_ms,
                    bound_by=b_by)
@@ -968,9 +963,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     def fwd_case(shp, tr):
         a = shade_inputs(shp[0], tr)
         return dict(run=lambda: sb.shade_bounce_fwd(*a),
-                    check=lambda: fwd_check(a),
-                    bytes=shp[0] * (80 + 24) + envc.numel() * 4,
-                    flops=shp[0] * FLOPS_SHADE_FWD)
+                    check=lambda: fwd_check(a))
 
     def bwd_case(shp, tr):
         """B′ with d_env, as the envmap phases call it; the extra columns
@@ -1003,9 +996,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                         old_device_ms=old.device_ms)
 
         return dict(run=lambda: sb.shade_bounce_bwd(*a, *ct), check=check,
-                    extra=extra, args=a,
-                    bytes=shp[0] * (104 + 32) + 2 * a[0].numel() * 4,
-                    flops=shp[0] * (FLOPS_SHADE_BWD + FLOPS_ENV_TAPS))
+                    extra=extra, args=a)
 
     ok, err = fwd_check(args)
     ms = dev_ms(lambda: sb.shade_bounce_fwd(*args))
@@ -1013,7 +1004,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     rows_b, rows_10 = shape_rows("shade_bounce_fwd", fwd_case)
     entry("shade_bounce_fwd", "shadebounce.cu", "shadebounce.py:267",
           ok and all_ok(rows_b + rows_10), err, ms, pms,
-          m * (80 + 24) + envc.numel() * 4, m * FLOPS_SHADE_FWD,
+          roofline("shade_bounce_fwd", (m, *envc.shape[:2])),
           by_shape=rows_b, by_shape_path10=rows_10)
 
     ct_t = torch.randn((m, 3), generator=g, device=dev)
@@ -1046,14 +1037,14 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         share = float(torch.bincount(bins[on]).max()) / max(int(on.sum()), 1)
         log(f"    {tag}: {share:.4f} of the NEE looks on one base tap")
         env_cases.append(dict(case=tag, nee_top_bin_share=share,
-                              **case_row(c, shp, 0,
+                              **case_row(c, "shade_bounce_bwd", shp, 0,
                                          f"{tag}: shade_bounce_bwd")))
         del tr_e, c
     entry("shade_bounce_bwd", "shadebounce.cu", "shadebounce.py:297",
           ok and all_ok(rows_b + rows_10 + env_cases), err, ms, pms,
-          m * (104 + 32) + 2 * envc.numel() * 4,
-          m * (FLOPS_SHADE_BWD + FLOPS_ENV_TAPS), by_shape=rows_b,
-          by_shape_path10=rows_10, env_cases=env_cases, **env_err)
+          roofline("shade_bounce_bwd", (m, *envc.shape[:2])),
+          by_shape=rows_b, by_shape_path10=rows_10, env_cases=env_cases,
+          **env_err)
 
     # ---- C′ by caller. Each is checked and timed at every main-path
     # shape on the recorded chunk's indices, its dead rows zero; the
@@ -1082,13 +1073,13 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             lib_ms = dev_ms(lambda: acc.index_add_(0, il, cb))
         live = int((cot != 0).any(-1).sum())
         touched = int(torch.unique(il[(cot != 0).any(-1)]).numel())
-        k_ = cot.shape[1]
-        # rows and indices read once; a new table written once, a running
-        # one read and written where it is touched
-        bytes_moved = cot.numel() * 4 + idx.numel() * 4 + (
-            rows * k_ * 4 if base is None else 2 * touched * k_ * 4)
-        return dict(ok=o, err=e, ms=ms, lib=lib_ms, bytes=bytes_moved,
-                    live=live, touched=touched)
+        # chip_smoke's own bound into a running table: the roofline has
+        # none, the rows it reads and writes being those it touches
+        own = None if base is None else bound(
+            cot.numel() * 4 + idx.numel() * 4
+            + 2 * touched * cot.shape[1] * 4, 0)
+        return dict(ok=o, err=e, ms=ms, lib=lib_ms, own=own, live=live,
+                    touched=touched)
 
     def compacted_bounce(cap, tr):
         """(sel, count, vertex idx, film idx) of the bounce of trace ``tr``
@@ -1110,7 +1101,8 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             for shp, count in shapes:
                 r = scatter_case(f"{where}: {counter} {shp}",
                                  **make(shp, tr))
-                b_ms, b_by = bound(r["bytes"], 0)
+                r["b"] = roofline(counter, shp) or r["own"]
+                b_ms = r["b"][0]
                 rows.append(dict(shape=list(shp), launches=count, r=r,
                                  ms=r["ms"], device_ms=r["ms"].device_ms,
                                  library_ms=r["lib"],
@@ -1138,7 +1130,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                       iters=3, warmup=1)
         ok = all(x.pop("r")["ok"] for x in rows + rows_10)
         entry(name, "rowops.cu", "rowops.py:189", ok, first["err"],
-              first["ms"], pms, first["bytes"], 0, library_ms=first["lib"],
+              first["ms"], pms, first["b"], library_ms=first["lib"],
               by_shape=rows, by_shape_path10=rows_10, **more)
 
     # material adjoint: bf16 payload, (cap, 8) rows onto the material table
@@ -1178,7 +1170,8 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                          cot_b, idx_big, BENCH_RES ** 2, False),
                      iters=3, warmup=1),
                  library_ms=wb["lib"], library_device_ms=wb["lib"].device_ms,
-                 bound_ms=bound(wb["bytes"], 0)[0],
+                 bound_ms=roofline("row_scatter_add_bf16",
+                                   (m_big, 8, BENCH_RES ** 2))[0],
                  rows_touched=wb["touched"], max_abs_err=wb["err"])
     log(f"    {m_big} rows onto {wb['touched']}: {wb['ms']:.4f} ms, device "
         f"{wb['ms'].device_ms} ms, plain {c_big['plain_ms']:.4f} ms, bound "
@@ -1191,7 +1184,8 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
                       shape=[m, 8, n], ms=wc["ms"],
                       device_ms=wc["ms"].device_ms, library_ms=wc["lib"],
                       library_device_ms=wc["lib"].device_ms,
-                      bound_ms=bound(wc["bytes"], 0)[0],
+                      bound_ms=roofline("row_scatter_add_bf16",
+                                        (m, 8, n))[0],
                       rows_touched=wc["touched"], max_abs_err=wc["err"]),
                   worst_case_1024=c_big)
 
@@ -1263,7 +1257,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             sel_case(f"{where} trace flags {shp}", alive, cap)
             ms = dev_ms(lambda: rowops.compact_sel(alive, cap))
             lib = dev_ms(lambda: torch.nonzero(alive))
-            b_ms, _ = bound(alive.numel() + 4 * cap + 4, 0)
+            b_ms = roofline("compact_sel", shp)[0]
             rows.append(dict(shape=list(shp), launches=count, ms=ms,
                              device_ms=ms.device_ms, library_ms=lib,
                              library_device_ms=lib.device_ms, bound_ms=b_ms))
@@ -1280,8 +1274,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     sel_case("M not a multiple of 16, unaligned", alive0[3:m - 1001], cap0)
     pms = cuda_ms(lambda: rowops.compact_sel_plain(alive0, cap0), iters=5)
     entry("compact_sel", "rowops.cu", "rowops.py:189", True, 0.0,
-          rows_s[0]["ms"], pms, rows_s[0]["shape"][0]
-          + 4 * rows_s[0]["shape"][1] + 4, 0,
+          rows_s[0]["ms"], pms, roofline("compact_sel", rows_s[0]["shape"]),
           library_ms=rows_s[0]["library_ms"], by_shape=rows_s,
           by_shape_path10=rows_10,
           jax_function="materialist_tpu/ops/pallas/rowops.py:344")
@@ -1293,7 +1286,6 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     # within 2 units in the last place of it
     tabs = (sampler.m_cdf, sampler.m_pdf, sampler.c_cdf, sampler.c_pdf)
     eh, ew = sampler.c_cdf.shape
-    tab_bytes = 4 * 2 * (eh + eh * ew)
 
     def sample_check(u2):
         tex_k = ek.env_sample_texels(*tabs, u2)
@@ -1318,8 +1310,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     def sample_case(shp, tr):
         u2 = recorded("env_sample_dir", shp[0], tr)[-1]
         return dict(run=lambda: ek.env_sample_dir(*tabs, u2),
-                    check=lambda: sample_check(u2),
-                    bytes=shp[0] * (8 + 16) + tab_bytes, flops=shp[0] * 120)
+                    check=lambda: sample_check(u2))
 
     u_s = rng.uniform(rng.key(SEED + 2), (m, 2), dev)
     ok, err = sample_check(u_s)
@@ -1328,7 +1319,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     rows_d, rows_10 = shape_rows("env_sample_dir", sample_case)
     entry("env_sample_dir", "envkernels.cu", "envkernels.py:154",
           ok and all_ok(rows_d + rows_10), err, ms, pms,
-          m * (8 + 16) + tab_bytes, m * 120, by_shape=rows_d,
+          roofline("env_sample_dir", (m, eh, ew)), by_shape=rows_d,
           by_shape_path10=rows_10)
 
     # a direction within an ulp of a texel border may fall in the
@@ -1349,7 +1340,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     pms = cuda_ms(lambda: ek.env_pdf_dir_plain(sampler.m_pdf, sampler.c_pdf,
                                                dirs), iters=5)
     entry("env_pdf_dir", "envkernels.cu", "envkernels.py:317", o, e, ms, pms,
-          m * 16 + tab_bytes // 2, m * 60, path="path 5")
+          roofline("env_pdf_dir", (m, eh, ew)), path="path 5")
 
     # H: a fused bounce's record (D′'s pdf, both bilinear taps, the gates
     # and the casts) in one launch, bit for bit against its plain version
@@ -1380,8 +1371,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             fail(f"no recorded bounce_record call of {shp[0]} rows")
         args = call[0]
         return dict(run=lambda: ek.bounce_record(*args),
-                    check=lambda: record_check(args, f"{list(shp)}"),
-                    bytes=record_bytes(shp), flops=shp[0] * OPS_RECORD)
+                    check=lambda: record_check(args, f"{list(shp)}"))
 
     tr_rl = capture_trace(torch, (cam_p, gbuf_p, mats_p, env),
                           shader.RenderConfig(spp=64, chunk=8,
@@ -1396,7 +1386,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     entry("bounce_record", "envkernels.cu", None,
           all(o for o, _ in ok_rl) and len(ok_rl) == 3
           and all_ok(rows_d + rows_10), max(e for _, e in ok_rl), ms, pms,
-          record_bytes(shp_rl), shp_rl[0] * OPS_RECORD, by_shape=rows_d,
+          roofline("bounce_record", shp_rl), by_shape=rows_d,
           by_shape_path10=rows_10, relight_shape=list(shp_rl),
           jax_function="none (no TPU kernel; replaces the JAX package's "
           "XLA-fused record ops, materialist_tpu/render/shader.py)")
@@ -1420,17 +1410,15 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             fail(f"unexpected shape of the bilinear fetch: {shp}")
         a = lookup_args(tr)
         return dict(run=lambda: ek.env_lookup_bilinear(*a),
-                    check=lambda: lookup_check(a),
-                    bytes=tr.n * (16 + 12) + a[0].numel() * 4,
-                    flops=tr.n * 3 * 8)
+                    check=lambda: lookup_check(a))
 
     rows_e, rows_10 = shape_rows("env_lookup_bilinear", lookup_case)
     a_e = lookup_args(tr_main)
     pms = cuda_ms(lambda: ek.env_lookup_bilinear_plain(*a_e), iters=5)
     entry("env_lookup_bilinear", "envkernels.cu", "envkernels.py:229",
           all_ok(rows_e + rows_10), rows_e[0]["max_abs_err"], rows_e[0]["ms"],
-          pms, n * (16 + 12) + envc.numel() * 4, n * 3 * 8, by_shape=rows_e,
-          by_shape_path10=rows_10)
+          pms, roofline("env_lookup_bilinear", (n, *envc.shape[:2])),
+          by_shape=rows_e, by_shape_path10=rows_10)
 
     # ---- C: row gather at the continuation pack's shape, (m, 6) rows at
     # the ascending indices of a compaction into cap = 9/16 m, and at
@@ -1468,7 +1456,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         (useful bytes) and the sector bound (the 32-byte sectors the
         card reads, ``utils/profiling.py::gather_sector_bytes``; also
         counted in 64-byte sectors, the bound where device memory is
-        read two sectors at a time)."""
+        read two sectors at a time). The sector bounds are chip_smoke's
+        own: the sectors hang on the indices, which the launch shape does
+        not carry."""
         n_t, k_t = tb.shape
         m_q = ix.numel()
         shp = (n_t, k_t, m_q, int(coherent))
@@ -1483,7 +1473,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         def lib_run():
             torch.index_select(tb, 0, ix)
         t_k, t_l = cuda_ms(run), cuda_ms(lib_run)
-        row.setdefault("bound_ms", bound(m_q * (4 + 8 * k_t), 0)[0])
+        row.setdefault("bound_ms", roofline("row_gather", shp)[0])
         row.update(shape=list(shp), ms=t_k,
                    device_ms=kernel_device_ms(run),
                    cold_device_ms=kernel_device_ms(run, flush=True),
@@ -1563,8 +1553,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
     torch.cuda.empty_cache()
     # the transparency edit's rows (path 5): the trace's side table of the
     # (N, 15) transparent table, 20 wide, fetched for a chunk of 8 samples
-    # a pixel at seeded hit indices. The queries repeat rows, so the byte
-    # bound reads each distinct row of the table once.
+    # a pixel at seeded hit indices. The queries repeat rows, so
+    # chip_smoke's own byte bound reads each distinct row of the table
+    # once, which the launch shape does not carry.
     k_t = 20
     tb = torch.randn((n, k_t), generator=g, device=dev)
     ix = torch.randint(0, n, (8 * n,), generator=g, device=dev,
@@ -1599,7 +1590,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         del base, flat, up
     torch.cuda.empty_cache()
     entry("row_gather", "rowops.cu", "rowops.py:89", all(oks), max(errs),
-          times["ascending"], pms, cap * (4 + 2 * 6 * 4), 0,
+          times["ascending"], pms, roofline("row_gather", (m, 6, cap, 1)),
           library_ms=lib_ms, by_shape=rows_g, by_shape_path10=rows_10,
           path10_fresh_device_ms=fresh_ms,
           path10_fresh_cold_device_ms=fresh_cold,
@@ -1636,9 +1627,10 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         cam_a, tab.dist, tab.valid, tab.mip, origin, d_lobe,
         mip_factor=tab.mip_f, fine_table=tab.fine, fine_factor=tab.fine_f,
         **skw), iters=3, warmup=1)
-    # the entry's time is the full march's: its bound counts the steps these
-    # rays need, as march_pair's does, one direction in, hit/idx/t out, the
-    # origin's stored rows (a broadcast over the samples) and the tables
+    # the entry's time is the full march's: its bound, chip_smoke's own as
+    # march_pair's, counts the steps these rays need, one direction in,
+    # hit/idx/t out, the origin's stored rows (a broadcast over the
+    # samples) and the tables
     steps = needed_march_steps(torch, cam_a, tab, origin, d_lobe,
                                cfg.march_steps, cfg.fine_steps, False)
     steps_so = needed_march_steps(torch, cam_a, tab, origin, d_lobe,
@@ -1648,9 +1640,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         f"{steps_so} of {m * cfg.march_steps})")
     entry("march_single", "march_pair.cu", "march_kernel.py:250", all(oks),
           max(t_errs), times[False], pms,
-          m * (12 + 9) + 12 * mk._origin_rows(origin).shape[0]
-          + 4 * (tab.mip.numel() + tab.fine.numel()),
-          steps * FLOPS_PER_MARCH_STEP, path="nee_false",
+          bound(m * (12 + 9) + 12 * mk._origin_rows(origin).shape[0]
+                + 4 * (tab.mip.numel() + tab.fine.numel()),
+                steps * FLOPS_PER_MARCH_STEP), path="nee_false",
           ms_shadow_only=times[True], steps_needed=steps, steps_full=full,
           steps_needed_shadow_only=steps_so)
 
@@ -1678,8 +1670,11 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         log(f"  {name}: {n_q} lookups, 128x128 table {times[128]:.4f} ms "
             f"(index_select {libs[128]:.4f}), 256x256 table "
             f"{times[256]:.4f} ms (index_select {libs[256]:.4f})")
+        # chip_smoke's own bound: the wrappers count F's and G's launches
+        # without a shape, so the roofline has none
         entry(name, "gathers.cu", src_line, all(oks), 0.0, times[128],
-              plains[128], n_q * 8 + 128 * 128 * 4, 0, library_ms=libs[128],
+              plains[128], bound(n_q * 8 + 128 * 128 * 4, 0),
+              library_ms=libs[128],
               path=path, ms_256=times[256], library_ms_256=libs[256],
               device_ms_256=times[256].device_ms,
               library_device_ms_256=libs[256].device_ms)
@@ -1700,13 +1695,13 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             got, want = got.view(torch.int32), want.view(torch.int32)
         return torch.equal(got, want)
 
-    def draw_row(what, run, plain, ok, hashed, samples, nbytes):
+    def draw_row(what, run, plain, ok, shape):
+        hashed, samples = shape[:2]   # of the counted launch shape
         row = dict(what=what, hashed=hashed, samples=samples, ok=ok)
         if hashed >= 2 ** 18:
             row.update(ms=dev_ms(run), plain_ms=cuda_ms(plain, iters=5))
             row["device_ms"] = row["ms"].device_ms
-            row["bound_ms"], _ = bound(hashed * samples * nbytes,
-                                       hashed * OPS_THREEFRY)
+            row["bound_ms"] = roofline("threefry_draw", shape)[0]
             log(f"  threefry_draw {what}: kernel {row['ms']:.4f} ms "
                 f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} "
                 f"ms, bound {row['bound_ms']:.4f} ms")
@@ -1725,7 +1720,7 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             lambda: rng.lattice_plain(k_d, s_d, n_d, gens, dev),
             same_bits(rng.lattice(k_d, s_d, n_d, gens, dev),
                       rng.lattice_plain(k_d, s_d, n_d, gens, dev)),
-            n_d * dims, s_d, 4))
+            (n_d * dims, s_d, 4, 2)))
     uni_rows, bit_rows = [], []
     for shp in ((8, BENCH_RES ** 2, 2), (8, 512 * 512, 2), (1023,), (3, 7),
                 (1025, 3)):
@@ -1734,12 +1729,12 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
             lambda: rng.uniform_plain(k_d, shp, dev),
             same_bits(rng.uniform(k_d, shp, dev),
                       rng.uniform_plain(k_d, shp, dev)),
-            math.prod(shp), 1, 4))
+            (math.prod(shp), 1, 4, 1)))
         bit_rows.append(draw_row(
             f"bits {shp}", lambda: rng.bits(k_d, shp, dev),
             lambda: rng.bits_plain(k_d, shp, dev),
             same_bits(rng.bits(k_d, shp, dev), rng.bits_plain(k_d, shp, dev)),
-            math.prod(shp), 1, 8))
+            (math.prod(shp), 1, 8, 0)))
     k_t = rng.split(rng.key(SEED + 6))[1]
     host_ok = (torch.equal(rng.randint(k_t, (4,), 0, 64, dev).cpu(),
                            rng.randint(k_t, (4,), 0, 64))
@@ -1756,8 +1751,9 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
         top = rows[0]
         entry(f"threefry_draw {what}", "threefry.cu", None, all_ok(rows),
               0.0, top["ms"], top["plain_ms"],
-              top["hashed"] * top["samples"] * nbytes,
-              top["hashed"] * OPS_THREEFRY, path=path,
+              roofline("threefry_draw", (top["hashed"], top["samples"],
+                                         nbytes, DRAW_MODES.index(what))),
+              path=path,
               counter=f"threefry_draw {what}", rows=rows)
     return out
 
@@ -2510,10 +2506,10 @@ def _forward_numbers(torch, net, x, what, iters):
         t = cuda_ms(lambda: net(x), iters=iters, device=True)
         _, _, top = _top_kernels(torch, lambda: net(x))
     ops_ms = 1e3 * (
-        flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else H100_FP32_FLOPS)
+        flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else PEAK_FP32_PER_S)
         + (flops["dense"] + flops["attention"])
-        / (H100_TF32_FLOPS if mm_tf32 else H100_FP32_FLOPS))
-    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        / (H100_TF32_FLOPS if mm_tf32 else PEAK_FP32_PER_S))
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
                   else (ops_ms, "operations"))
     dev = f"{t.device_ms:.3f}" if t.device_ms else "not measured"
@@ -2926,9 +2922,9 @@ def scratch_on_card(torch, data):
             dev_ms, n_ops, top = _top_kernels(
                 torch, lambda: step(rng.fold_in(key, 0)), iters=5, n=5)
         ops_ms = 3e3 * (
-            flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else H100_FP32_FLOPS)
+            flops["conv"] / (H100_TF32_FLOPS if conv_tf32 else PEAK_FP32_PER_S)
             + (flops["dense"] + flops["attention"])
-            / (H100_TF32_FLOPS if mm_tf32 else H100_FP32_FLOPS))
+            / (H100_TF32_FLOPS if mm_tf32 else PEAK_FP32_PER_S))
         med = _median(ms[20:])
         dev = f"{dev_ms:.3f}" if dev_ms else "not measured"
         log(f"  {label} (TF32: convolutions {'on' if conv_tf32 else 'off'}, "

@@ -19,9 +19,21 @@ import torch
 from materialist_tpu_torch import config
 
 
+def sqrt(x):
+    """Correctly rounded square root, the one rule of the port's roots.
+
+    The card's root rounds correctly, as numpy's and XLA's do, and runs
+    as it is. torch's CPU float32 root can miss by one ulp, which GGX
+    sampling's ``sqrt(1 - cos²)`` magnifies: there the root is taken in
+    float64 and rounded back to ``x``'s dtype. Autograd goes through the
+    casts; on the card ``.to`` of the same dtype is the tensor itself.
+    """
+    return torch.sqrt(x if x.is_cuda else x.double()).to(x.dtype)
+
+
 def norm(v, keepdim: bool = True):
     """Euclidean norm over the last axis as sqrt(Σ v²)."""
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+    return sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from materialist_tpu_torch.camera import norm
+from materialist_tpu_torch.camera import norm, sqrt
 
 PI = math.pi
 
@@ -94,8 +94,8 @@ def eval_brdf(wi, wo, normal, albedo, roughness, metallic):
 
 def sample_diffuse(u2, normal):
     """Cosine-hemisphere sample; u2 (..., 2) → wi (..., 3) world."""
-    sin_t = torch.sqrt(torch.clamp(u2[..., 0], 0.0, 1.0))
-    cos_t = torch.sqrt(torch.clamp(1.0 - u2[..., 0], 0.0, 1.0))
+    sin_t = sqrt(torch.clamp(u2[..., 0], 0.0, 1.0))
+    cos_t = sqrt(torch.clamp(1.0 - u2[..., 0], 0.0, 1.0))
     phi = 2.0 * PI * u2[..., 1]
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                          cos_t], dim=-1)
@@ -106,9 +106,9 @@ def sample_ggx(u2, roughness, wo, normal):
     """GGX half-vector sample reflected about wo, NaN-scrubbed."""
     alpha = (roughness * roughness)[..., 0]
     a2 = alpha * alpha
-    cos_t = torch.sqrt(torch.clamp(
+    cos_t = sqrt(torch.clamp(
         (1.0 - u2[..., 0]) / (u2[..., 0] * (a2 - 1.0) + 1.0), 0.0, 1.0))
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, 0.0, 1.0))
+    sin_t = sqrt(torch.clamp(1.0 - cos_t * cos_t, 0.0, 1.0))
     phi = 2.0 * PI * u2[..., 1]
     local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                          cos_t], dim=-1)

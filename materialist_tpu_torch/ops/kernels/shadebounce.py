@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from materialist_tpu_torch.camera import sqrt
 from materialist_tpu_torch.ops.brdf import pow5
 from materialist_tpu_torch.ops.kernels import _lib
 
@@ -74,7 +75,7 @@ def _geom(wi, wo, n):
     def dot(a, b):
         return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
     hv = wi + wo
-    hn = torch.clamp_min(torch.sqrt(dot(hv, hv)), 1e-12)
+    hn = torch.clamp_min(sqrt(dot(hv, hv)), 1e-12)
     hv = hv / hn[:, None]
     return (torch.clamp_min(dot(n, wi), 0.0), torch.clamp_min(dot(n, wo), 0.0),
             torch.clamp_min(dot(wo, hv), 0.0), torch.clamp_min(dot(n, hv), 0.0))

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from materialist_tpu_torch.camera import sqrt
 from materialist_tpu_torch.ops import envmap as em
 
 
@@ -26,7 +27,7 @@ def num_coeffs(l_max: int) -> int:
 def _assoc_legendre(l_max: int, x):
     """P_l^m(x) for 0≤m≤l≤l_max via stable recurrences. Returns dict."""
     p = {(0, 0): torch.ones_like(x)}
-    somx2 = torch.sqrt(torch.clamp(1.0 - x * x, 0.0, 1.0))
+    somx2 = sqrt(torch.clamp(1.0 - x * x, 0.0, 1.0))
     for m in range(1, l_max + 1):
         p[(m, m)] = (-1.0) ** m * _dfact(2 * m - 1) * somx2 ** m
     for m in range(0, l_max):

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from materialist_tpu_torch.camera import Camera
+from materialist_tpu_torch.camera import Camera, sqrt
 from materialist_tpu_torch.ops import brdf as B
 from materialist_tpu_torch.ops.kernels.rowops import (row_gather_diff,
                                                       row_scatter_add)
@@ -135,7 +135,7 @@ def transparent(mats: Materials, bg, mask, spec_trans: float, ior: float,
         """Snell refraction; wi points away from the surface."""
         cos_i = B.dot(wi, normal)
         sin2_t = eta_ratio ** 2 * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
-        cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
+        cos_t = sqrt(torch.clamp(1.0 - sin2_t, 0.0, 1.0))
         return B.normalize(eta_ratio * (normal * cos_i - wi)
                            - normal * cos_t)
 
@@ -195,7 +195,7 @@ def transparent(mats: Materials, bg, mask, spec_trans: float, ior: float,
         f_glass = 0.5 * (r_s * r_s + r_p * r_p)
         d_hack = B.d_ggx(no_h, torch.ones_like(rough))
         den = ior * hw_in + hw_out
-        btdf = torch.sqrt(torch.clamp_min(base_glass, 0.0)) * g * d_hack \
+        btdf = sqrt(torch.clamp_min(base_glass, 0.0)) * g * d_hack \
             * (1 - f_glass) * (ior ** 2 * hw_in * hw_out) \
             / (nw_in * nw_out * (den * den))
         brdf_spec_edit = base_glass * d * g / (4 * nw_in)

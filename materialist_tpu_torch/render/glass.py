@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from materialist_tpu_torch.camera import Camera, norm
+from materialist_tpu_torch.camera import Camera, norm, sqrt
 from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.render import screenspace as ss
 
@@ -34,7 +34,7 @@ def refract(d, n, eta):
     cos_i = -torch.sum(d * n, dim=-1, keepdim=True)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = k[..., 0] < 0.0
-    t = eta * d + (eta * cos_i - torch.sqrt(torch.clamp_min(k, 0.0))) * n
+    t = eta * d + (eta * cos_i - sqrt(torch.clamp_min(k, 0.0))) * n
     return t / torch.clamp_min(norm(t), 1e-9), tir
 
 
@@ -49,7 +49,7 @@ def fresnel_dielectric(cos_i, eta):
     Returns R in [0, 1] (1 under total internal reflection)."""
     cos_i = torch.clamp(cos_i, 0.0, 1.0)
     sin_t2 = eta * eta * (1.0 - cos_i * cos_i)
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin_t2, 0.0))
+    cos_t = sqrt(torch.clamp_min(1.0 - sin_t2, 0.0))
     r_s = (eta * cos_i - cos_t) / torch.clamp_min(eta * cos_i + cos_t, 1e-9)
     r_p = (cos_t * eta - cos_i) / torch.clamp_min(eta * cos_t + cos_i, 1e-9)
     r = 0.5 * (r_s * r_s + r_p * r_p)

@@ -60,6 +60,50 @@ def test_gbuffer_matches():
                                rtol=1e-6)
 
 
+def _sqrt_inputs():
+    """100,000 seeded float32 in [0, 1], then 0, subnormals, 1 and a large
+    value."""
+    x = np.random.default_rng(7).uniform(size=100_000).astype(np.float32)
+    edge = np.array([0.0, 1e-45, 3e-39, 1.1754942e-38, 1.0, 3.0e38],
+                    np.float32)
+    return np.concatenate([x, edge])
+
+
+def _ulps(a, b):
+    """Distance in float32 units in the last place of non-negative a, b."""
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("case", [
+    "root", "gradient", pytest.param("card", marks=pytest.mark.cuda)])
+def test_sqrt_rounds_correctly(case):
+    """``camera.sqrt``: numpy's (correctly rounded) float32 root bit for bit
+    on the CPU, its gradient within 1 ulp of 0.5 / sqrt(x) at x > 0, and on
+    the card exactly ``torch.sqrt``."""
+    x = _sqrt_inputs()
+    if case == "root":
+        got = tcam.sqrt(_t(x))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      np.sqrt(x).view(np.int32))
+    elif case == "gradient":
+        xt = _t(x[x > 0]).requires_grad_(True)
+        tcam.sqrt(xt).sum().backward()
+        g = xt.grad.numpy()
+        want = (0.5 / np.sqrt(x[x > 0].astype(np.float64))).astype(np.float32)
+        assert np.isfinite(g).all()
+        assert _ulps(g, want).max() <= 1
+    else:
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        xc = _t(x).cuda()
+        got = tcam.sqrt(xc)
+        assert got.dtype == torch.float32 and got.is_cuda
+        assert torch.equal(got.view(torch.int32),
+                           torch.sqrt(xc).view(torch.int32))
+
+
 def test_load_best_results_matches():
     a = jscene.load_best_results(os.path.join(FIXTURE, "best_results"))
     b = tscene.load_best_results(os.path.join(FIXTURE, "best_results"))
