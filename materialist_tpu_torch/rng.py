@@ -5,10 +5,10 @@ A key is a CPU ``int64`` tensor of shape ``(2,)`` holding two uint32
 words; a batch of keys has shape ``(n, 2)``. Every function takes its key
 explicitly, as ``jax.random`` does, so the estimator draws the same
 numbers as the JAX package from the same seed. Keys are hashed on the
-host; on the CPU a draw emulates uint32 arithmetic in int64 with masks
-(torch has no uint32 arithmetic), which is the plain version of the
-card's draw: one launch of ``csrc/threefry.cu`` (``threefry_draw``) that
-gives the same bits.
+host in Python integers; on the CPU a draw emulates uint32 arithmetic in
+int64 with masks (torch has no uint32 arithmetic), which is the plain
+version of the card's draw: one launch of ``csrc/threefry.cu``
+(``threefry_draw``) that gives the same bits.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ import math
 import torch
 
 from materialist_tpu_torch.ops.kernels import _lib
-from materialist_tpu_torch.utils.profiling import RNG_VALUES, count, span
+from materialist_tpu_torch.utils.profiling import (RNG_KEY_HASHES, RNG_VALUES,
+                                                   count, span)
 
 _M = 0xFFFFFFFF
 _BITS = span("rng.bits")     # the hash of a draw's counts, on its device
-_KEYS = span("rng.keys")     # split and fold_in: a few counts on the host
+_KEYS = span("rng.keys")     # split and fold_in: a few counts in Python ints
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -31,7 +32,8 @@ def _rotl(x, r: int):
 
 
 def threefry2x32(k1: int, k2: int, x1, x2):
-    """The Threefry-2x32 hash (20 rounds) of count pairs (x1, x2)."""
+    """The Threefry-2x32 hash (20 rounds) of count pairs (x1, x2): int64
+    tensors holding uint32 values, or Python ints in [0, 2³²)."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x0 = (x1 + ks[0]) & _M
     y0 = (x2 + ks[1]) & _M
@@ -50,25 +52,27 @@ def key(seed: int) -> torch.Tensor:
 
 
 def _words(k: torch.Tensor):
-    return int(k[0]), int(k[1])
+    k1, k2 = k.tolist()
+    return k1, k2
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: (num, 2) keys from counts (0, i)."""
+    """``jax.random.split``: (num, 2) keys from counts (0, i), hashed in
+    Python ints (a caller splits into at most 64)."""
+    count(RNG_KEY_HASHES, num)
     with _KEYS:
         k1, k2 = _words(k)
-        cnt = torch.arange(num, dtype=torch.int64)
-        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(cnt), cnt)
-        return torch.stack([b1, b2], dim=-1)
+        return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                            dtype=torch.int64).reshape(num, 2)
 
 
 def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the count pair (0, data)."""
+    count(RNG_KEY_HASHES, 1)
     with _KEYS:
         k1, k2 = _words(k)
-        d = torch.tensor([int(data) & _M], dtype=torch.int64)
-        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
-        return torch.cat([b1, b2])
+        return torch.tensor(threefry2x32(k1, k2, 0, int(data) & _M),
+                            dtype=torch.int64)
 
 
 def bits_plain(k: torch.Tensor, shape, device=None) -> torch.Tensor:

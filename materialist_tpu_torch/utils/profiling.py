@@ -41,6 +41,7 @@ import torch.autograd.profiler as _aprof
 RECENT = 512
 CAT_BYTES = "glue.cat_bytes"
 RNG_VALUES = "rng.values"
+RNG_KEY_HASHES = "rng.key_hashes"
 
 _SPANS = {}      # name -> its span, made once
 _STACK = []      # the open spans: [name, start ns, children's ns, range]

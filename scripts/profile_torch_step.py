@@ -11,8 +11,10 @@ It builds the cell as ``perfbench/run.py`` does, with the ``Loop`` of its
 traffic's ``perfbench/loops/<loop>.py``, whose set-up runs the traffic's
 first units and so warms every shape. Then, one JSON line each:
 
-* ``unit``: one unit without the profiler, its host ms, and the spans
-  the program closed in it;
+* ``unit``: one unit without the profiler, its host ms, the spans the
+  program closed in it, each span's calls and host ms (``by_span``,
+  ``rng.keys`` among them) and the counters of the roots it closed
+  (``counts``: ``rng.key_hashes``, ``rng.values``, ...);
 * ``span_cost``: the host ns of one span with no profiler recording (a
   nest of ``--span-reps`` spans under a root), and that times the unit's
   spans as a share of the unit;
@@ -56,10 +58,29 @@ def ranges_off():
         aprof._is_profiler_enabled = True
 
 
-def spans_closed(profiling, before):
-    """Spans closed since ``before = profiling.totals()``."""
-    return sum(c - before.get(n, (0, 0.0))[0]
-               for n, (c, _) in profiling.totals().items())
+def records(profiling):
+    """Every root record the program keeps, by id (held, so that no id
+    is reused)."""
+    return {id(r): r for n in profiling.totals() for r in profiling.recent(n)}
+
+
+def unit_view(profiling, before, before_recs):
+    """(by span: [calls, host ms], counters summed over the roots' new
+    records) since ``before = profiling.totals()`` and ``before_recs =
+    records(profiling)``."""
+    by_span = {}
+    for n, (c, ms) in profiling.totals().items():
+        c0, ms0 = before.get(n, (0, 0.0))
+        if c > c0:
+            by_span[n] = [c - c0, ms - ms0]
+    counts = {}
+    for n in profiling.totals():
+        for r in profiling.recent(n):
+            if id(r) not in before_recs:
+                for k, v in r["counts"].items():
+                    counts[k] = counts.get(k, 0) + v
+    return (dict(sorted(by_span.items(), key=lambda kv: -kv[1][1])),
+            counts)
 
 
 def span_cost_ns(profiling, reps):
@@ -103,14 +124,16 @@ def main(argv=None):
     i = loop.next
 
     torch.cuda.synchronize()
-    before = profiling.totals()
+    before, before_recs = profiling.totals(), records(profiling)
     t0 = time.perf_counter()
     loop.unit(i)
     torch.cuda.synchronize()
     unit_ms = (time.perf_counter() - t0) * 1e3
-    n_spans = spans_closed(profiling, before)
+    by_span, counts = unit_view(profiling, before, before_recs)
+    n_spans = sum(c for c, _ in by_span.values())
     print(json.dumps({"unit": loop.unit_name, "host_ms": unit_ms,
-                      "spans": n_spans}), flush=True)
+                      "spans": n_spans, "by_span": by_span,
+                      "counts": counts}), flush=True)
     ns = span_cost_ns(profiling, args.span_reps)
     print(json.dumps({"span_cost": {
         "ns_per_span": ns, "spans_per_unit": n_spans,

@@ -249,3 +249,84 @@ def test_cpu_bits_are_the_int64_version_and_launch_nothing(shape):
     rec = P.recent("test.draw_root")[-1]
     assert rec["counts"][P.RNG_VALUES] == int(np.prod(shape))
     assert rec["spans"]["rng.bits"]["calls"] == 1
+
+
+# key words at the ends of uint32, and one from the middle
+_EDGE_WORDS = [(0, 0), (0xFFFFFFFF, 0xFFFFFFFF), (0, 0xFFFFFFFF),
+               (0xFFFFFFFF, 0), (0x12345678, 0x9ABCDEF0)]
+
+
+def _key_pair(words):
+    return (jax.numpy.asarray(np.array(words, dtype=np.uint32)),
+            torch.tensor(words, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("words", _EDGE_WORDS)
+def test_split_matches_jax_for_every_caller_count(words):
+    """``split`` hashes in Python ints: every ``num`` a caller passes (chunks,
+    groups, 2, 3, 8, at most spp = 64) equals ``jax.random.split``."""
+    k, kt = _key_pair(words)
+    for num in range(1, 65):
+        np.testing.assert_array_equal(_np(jax.random.split(k, num)),
+                                      rng.split(kt, num).numpy())
+
+
+@pytest.mark.parametrize("words", _EDGE_WORDS)
+def test_fold_in_matches_jax_up_to_the_uint32_end(words):
+    k, kt = _key_pair(words)
+    for data in (0, 1, 991, 2 ** 31 - 1, 2 ** 31, 3500007,
+                 2 ** 32 - 2, 2 ** 32 - 1):
+        np.testing.assert_array_equal(_np(jax.random.fold_in(k, data)),
+                                      rng.fold_in(kt, data).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 17, 2 ** 31 + 5])
+def test_trace_chunk_key_tree_matches_jax(seed):
+    """A trace chunk's keys (``render/shader.py``): the film jitter's
+    fold_in(key, 991), then split(fold_in(key, b), 3) for bounces 0–2, on
+    each chunk key of a relight pass's split(key, 8)."""
+    ks = jax.random.split(jax.random.PRNGKey(seed), 8)
+    kts = rng.split(rng.key(seed), 8)
+    for c in range(8):
+        k, kt = ks[c], kts[c]
+        np.testing.assert_array_equal(_np(jax.random.fold_in(k, 991)),
+                                      rng.fold_in(kt, 991).numpy())
+        for b in range(3):
+            np.testing.assert_array_equal(
+                _np(jax.random.split(jax.random.fold_in(k, b), 3)),
+                rng.split(rng.fold_in(kt, b), 3).numpy())
+
+
+@pytest.mark.parametrize("num", [1, 2, 3, 8, 64])
+def test_keys_are_contiguous_cpu_int64(num):
+    kt = rng.split(rng.key(4), 3)[2]
+    keys = rng.split(kt, num)
+    half = num // 2
+    for got, shape in ((keys, (num, 2)), (rng.fold_in(kt, num), (2,)),
+                       (keys[num - 1], (2,)), (keys[half:], (num - half, 2))):
+        assert got.dtype == torch.int64 and got.device.type == "cpu"
+        assert tuple(got.shape) == shape and got.is_contiguous()
+        assert 0 <= int(got.min()) and int(got.max()) <= 0xFFFFFFFF
+    # callers unpack rows as keys, and split and fold_in a row
+    first, *_ = keys
+    assert torch.equal(rng.fold_in(first, 1), rng.fold_in(keys[0].clone(), 1))
+    assert torch.equal(rng.split(first, 2), rng.split(keys[0].clone(), 2))
+
+
+def test_key_hash_counter_under_a_root_and_without_one():
+    from materialist_tpu_torch.utils import profiling as P
+    kt = rng.key(8)
+    with P.span("test.keys_root"):
+        rng.split(kt, 5)
+        rng.fold_in(kt, 3)
+        rng.split(rng.fold_in(kt, 0), 3)
+    rec = P.recent("test.keys_root")[-1]
+    assert rec["counts"][P.RNG_KEY_HASHES] == 5 + 1 + 1 + 3
+    assert rec["spans"]["rng.keys"]["calls"] == 4
+    # no root open: rng.keys is its own root and nothing is counted
+    rng.split(kt, 7)
+    rng.fold_in(kt, 2)
+    assert P.RNG_KEY_HASHES not in P.recent("rng.keys")[-1]["counts"]
+    with P.span("test.keys_after"):
+        pass
+    assert P.recent("test.keys_after")[-1]["counts"] == {}
