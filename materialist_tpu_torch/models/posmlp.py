@@ -2,7 +2,11 @@
 ``materialist_tpu/models/posmlp.py``): NeRF-style embedding of integer
 pixel coords, sine hidden layers with torch.nn.Linear default init, skip
 connections that re-concatenate the embedded input, a zero-initialized
-output layer and per-head output transforms."""
+output layer and per-head output transforms. A forward is the span
+``posmlp.forward``; the rows it evaluates add to
+``posmlp.rows.<output_type>`` (``.arm`` for the material net, ``.envmap``
+for the envmap's),
+so that each network's rows are counted at its own widths."""
 
 from __future__ import annotations
 
@@ -11,6 +15,10 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from materialist_tpu_torch.utils.profiling import POSMLP_ROWS, count, span
+
+_FORWARD = span("posmlp.forward")
 
 
 def positional_embed(x, num_freqs: int):
@@ -79,31 +87,34 @@ class PosMLP(nn.Module):
         nn.init.zeros_(self.lin_out.bias)
 
     def forward(self, img):
-        """img: (N, color_ch) flattened start maps → (N, out_dims)."""
-        coords = grid_coords(img.shape[0], img.device)
-        pts = torch.cat([positional_embed(coords, self.multires), img], -1)
-        x = pts
-        for layer, lin in enumerate(self.lins):
-            if layer in self.skip:
+        """img: (N, color_ch) flattened start maps → (N, out_dims). Counts
+        N rows (``posmlp.rows.<output_type>``) under an open root."""
+        count(f"{POSMLP_ROWS}.{self.output_type}", img.shape[0])
+        with _FORWARD:
+            coords = grid_coords(img.shape[0], img.device)
+            pts = torch.cat([positional_embed(coords, self.multires), img], -1)
+            x = pts
+            for layer, lin in enumerate(self.lins):
+                if layer in self.skip:
+                    x = torch.cat([x, pts], dim=-1)
+                x = torch.sin(lin(x))
+            if len(self.lins) in self.skip:
                 x = torch.cat([x, pts], dim=-1)
-            x = torch.sin(lin(x))
-        if len(self.lins) in self.skip:
-            x = torch.cat([x, pts], dim=-1)
-        x = self.lin_out(x)
-        if self.output_type == "envmap":
-            return torch.nn.functional.softplus(x)
-        if self.output_type == "arm":
-            return _straight_through_clamp(1.3 * torch.tanh(x) + img)
-        if self.output_type == "armn":
-            arm = _straight_through_clamp(1.3 * torch.tanh(x[..., 0:5])
-                                          + img[..., 0:5])
-            return torch.cat([arm, torch.tanh(x[..., 5:8] + img[..., 5:8])],
-                             dim=-1)
-        if self.output_type == "normal":
-            y = torch.tanh(x + img)
-            return y / torch.clamp_min(
-                torch.linalg.vector_norm(y, dim=-1, keepdim=True), 1e-9)
-        raise ValueError(f"unknown output_type {self.output_type}")
+            x = self.lin_out(x)
+            if self.output_type == "envmap":
+                return torch.nn.functional.softplus(x)
+            if self.output_type == "arm":
+                return _straight_through_clamp(1.3 * torch.tanh(x) + img)
+            if self.output_type == "armn":
+                arm = _straight_through_clamp(1.3 * torch.tanh(x[..., 0:5])
+                                              + img[..., 0:5])
+                return torch.cat(
+                    [arm, torch.tanh(x[..., 5:8] + img[..., 5:8])], dim=-1)
+            if self.output_type == "normal":
+                y = torch.tanh(x + img)
+                return y / torch.clamp_min(
+                    torch.linalg.vector_norm(y, dim=-1, keepdim=True), 1e-9)
+            raise ValueError(f"unknown output_type {self.output_type}")
 
 
 def make_envmap_net(generator: torch.Generator = None):

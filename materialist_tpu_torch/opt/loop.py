@@ -96,6 +96,92 @@ def _mats_from_dict(mat) -> Materials:
                      mat["normal"])
 
 
+def start_arm_of(ori: Materials, output_type: str = "arm"):
+    """The material net's input rows (H·W, 5), clamped to [0, 1]: albedo,
+    roughness, metallic of the start maps ``ori``; for "armn" (H·W, 8),
+    unclamped, the normal after them."""
+    h, w = ori.albedo.shape[:2]
+    n = h * w
+    if output_type == "armn":
+        return torch.cat(
+            [ori.albedo.reshape(n, 3), ori.roughness.reshape(n, 1),
+             ori.metallic.reshape(n, 1), ori.normal.reshape(n, 3)], -1)
+    return torch.clamp(torch.cat(
+        [ori.albedo.reshape(n, 3), ori.roughness.reshape(n, 1),
+         ori.metallic.reshape(n, 1)], -1), 0, 1)
+
+
+def _constrained_mats(maps, mask=None) -> Materials:
+    """``Materials`` of (albedo, rough, metal, normal); with a ``mask``,
+    in-mask roughness and metallic forced to their in-mask means."""
+    albedo, rough, metal, nrm = maps
+    if mask is not None:
+        rough, metal = _apply_mask_constraint(rough, metal, mask)
+    return Materials(albedo, rough, metal, nrm)
+
+
+def mlp_maps_of(start_arm, part: str, hw, output_type: str = "arm",
+                mask=None):
+    """``maps_of(net, extra)`` of a pos_mlp material phase: the channels
+    in ``part`` predicted by the net from ``start_arm``, the rest frozen at
+    the current maps (no gradient); ``extra`` is (current maps, envmap)."""
+    h, w = hw
+
+    def maps_of(net, extra):
+        cur, envmap = extra
+        out = net(start_arm)
+        albedo = (torch.clamp(out[..., 0:3], 0, 1).reshape(h, w, 3)
+                  if "a" in part else cur["albedo"].detach())
+        rough = (torch.clamp(out[..., 3:4] * 0.93 + 0.07, 0, 1)
+                 .reshape(h, w, 1) if "r" in part
+                 else cur["roughness"].detach())
+        metal = (torch.clamp(out[..., 4:5], 0, 1).reshape(h, w, 1)
+                 if "m" in part else cur["metallic"].detach())
+        if output_type == "armn" and "n" in part:
+            nrm = out[..., 5:8]
+            nrm = (nrm / torch.clamp_min(norm(nrm), 1e-9)).reshape(h, w, 3)
+        else:
+            nrm = cur["normal"].detach()
+        return _constrained_mats((albedo, rough, metal, nrm), mask), envmap
+    return maps_of
+
+
+def material_loss_of(part: str, gt_image, ori: Materials,
+                     scale_delta: float = 0.1, use_mesh_normal: bool = True):
+    """``loss_of(maps, img, extra)`` of a material phase: the image scaled
+    to the photo's mean, 3·(l1/mse)·mse + l1 of its sRGB (the ratio held
+    constant), plus ``scale_delta`` times the mean distance of each
+    optimised map in ``part`` from its start ``ori``. Aux: (mse, the
+    render loss, the map term, the maps detached, the sRGB image)."""
+    gt_srgb = linear_to_srgb(gt_image)
+
+    def loss_of(maps, img, extra):
+        mats = maps[0]
+        albedo, rough, metal, nrm = mats
+        ratio = torch.mean(gt_image) / torch.clamp_min(
+            torch.mean(img).detach(), 1e-9)
+        pred = linear_to_srgb(img * ratio)
+        mse = torch.mean((pred - gt_srgb) ** 2)
+        l1 = torch.mean(torch.abs(pred - gt_srgb))
+        aux = 0.0
+        if "a" in part:
+            aux = aux + torch.mean(torch.abs(albedo - ori.albedo))
+        if "r" in part:
+            aux = aux + torch.mean(torch.abs(rough - ori.roughness))
+        if "m" in part:
+            aux = aux + torch.mean(torch.abs(metal - ori.metallic))
+        if "n" in part and not use_mesh_normal:
+            aux = aux + torch.mean(torch.abs(nrm - ori.normal))
+        scale_ratio = (l1 / torch.clamp_min(mse, 1e-12)).detach()
+        render_loss = 3.0 * scale_ratio * mse + l1
+        loss = render_loss + aux * scale_delta
+        det = Materials(*[t.detach() for t in mats])
+        return loss, (mse.detach(), render_loss.detach(),
+                      aux.detach() if torch.is_tensor(aux) else aux,
+                      det, pred.detach())
+    return loss_of
+
+
 def plan_phase_weights(opts: InverseOptions) -> list:
     """Weighted list of the phases ``optimize`` will execute (material
     1.0, env 0.5, reference-quirk 1-epoch env 0.02)."""
@@ -199,15 +285,8 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
     mat["normal"] = normal_ori
 
     h, w = gt_image.shape[:2]
-    n = h * w
-    if opts.output_type == "armn":
-        start_arm = torch.cat(
-            [albedo_ori.reshape(n, 3), roughness_ori.reshape(n, 1),
-             metallic_ori.reshape(n, 1), normal_ori.reshape(n, 3)], -1)
-    else:
-        start_arm = torch.clamp(torch.cat(
-            [albedo_ori.reshape(n, 3), roughness_ori.reshape(n, 1),
-             metallic_ori.reshape(n, 1)], -1), 0, 1)
+    ori = Materials(albedo_ori, roughness_ori, metallic_ori, normal_ori)
+    start_arm = start_arm_of(ori, opts.output_type)
 
     envmap_net = posmlp.make_envmap_net(
         torch.Generator().manual_seed(1)).to(dev)
@@ -250,57 +329,7 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
             env_step_fns[k] = env_phase.make_step(env_opts[k])
         return env_opts[k], env_step_fns[k]
 
-    def material_maps_mlp(net, cur, part):
-        """Net-predicted maps for the channels in `part`; the rest stay
-        frozen at the current best (no gradient)."""
-        out = net(start_arm)
-        albedo = (torch.clamp(out[..., 0:3], 0, 1).reshape(h, w, 3)
-                  if "a" in part else cur["albedo"].detach())
-        rough = (torch.clamp(out[..., 3:4] * 0.93 + 0.07, 0, 1)
-                 .reshape(h, w, 1) if "r" in part
-                 else cur["roughness"].detach())
-        metal = (torch.clamp(out[..., 4:5], 0, 1).reshape(h, w, 1)
-                 if "m" in part else cur["metallic"].detach())
-        if opts.output_type == "armn" and "n" in part:
-            nrm = out[..., 5:8]
-            nrm = (nrm / torch.clamp_min(norm(nrm), 1e-9)).reshape(h, w, 3)
-        else:
-            nrm = cur["normal"].detach()
-        return albedo, rough, metal, nrm
-
-    def _constrained_mats(maps):
-        albedo, rough, metal, nrm = maps
-        if opts.use_mask and mask is not None:
-            rough, metal = _apply_mask_constraint(rough, metal, mask)
-        return Materials(albedo, rough, metal, nrm)
-
-    def make_mat_loss_of(part):
-        def loss_of(maps, img, extra):
-            mats = maps[0]
-            albedo, rough, metal, nrm = mats
-            ratio = torch.mean(gt_image) / torch.clamp_min(
-                torch.mean(img).detach(), 1e-9)
-            pred = linear_to_srgb(img * ratio)
-            mse = torch.mean((pred - gt_srgb) ** 2)
-            l1 = torch.mean(torch.abs(pred - gt_srgb))
-            aux = 0.0
-            if "a" in part:
-                aux = aux + torch.mean(torch.abs(albedo - albedo_ori))
-            if "r" in part:
-                aux = aux + torch.mean(torch.abs(rough - roughness_ori))
-            if "m" in part:
-                aux = aux + torch.mean(torch.abs(metal - metallic_ori))
-            if "n" in part and not opts.use_mesh_normal:
-                aux = aux + torch.mean(torch.abs(nrm - normal_ori))
-            scale_ratio = (l1 / torch.clamp_min(mse, 1e-12)).detach()
-            render_loss = 3.0 * scale_ratio * mse + l1
-            loss = render_loss + aux * opts.scale_delta
-            det = Materials(*[t.detach() for t in mats])
-            return loss, (mse.detach(), render_loss.detach(),
-                          aux.detach() if torch.is_tensor(aux) else aux,
-                          det, pred.detach())
-        return loss_of
-
+    mat_mask = mask if opts.use_mask else None
     mat_phases = {}
 
     def get_mat_phase(kind, part):
@@ -308,10 +337,8 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
         if key_ in mat_phases:
             return mat_phases[key_]
         if kind == "mlp":
-            def maps_of(net, extra):
-                cur, envmap = extra
-                return (_constrained_mats(material_maps_mlp(net, cur, part)),
-                        envmap)
+            maps_of = mlp_maps_of(start_arm, part, (h, w), opts.output_type,
+                                  mat_mask)
             opt = schedules.adamw_steplr(3e-4, floor=1.5e-4)
         else:
             def maps_of(params, extra):
@@ -327,11 +354,13 @@ def optimize(gbuf: GBuffer, cam: Camera, mat: dict, output_dir: str,
                     nrm = nr / torch.clamp_min(norm(nr), 1e-9)
                 else:
                     nrm = cur["normal"]
-                return (_constrained_mats((albedo, rough, metal, nrm)),
-                        envmap)
+                return (_constrained_mats((albedo, rough, metal, nrm),
+                                          mat_mask), envmap)
             opt = schedules.adam_steplr(3e-4, floor=1.5e-4)
-        phase = make_phase_step(cfg, cam, gbuf, maps_of,
-                                make_mat_loss_of(part), device=dev)
+        loss_of = material_loss_of(part, gt_image, ori, opts.scale_delta,
+                                   opts.use_mesh_normal)
+        phase = make_phase_step(cfg, cam, gbuf, maps_of, loss_of,
+                                device=dev)
         entry = (phase, phase.make_step(opt), opt)
         mat_phases[key_] = entry
         return entry

@@ -42,6 +42,7 @@ RECENT = 512
 CAT_BYTES = "glue.cat_bytes"
 RNG_VALUES = "rng.values"
 RNG_KEY_HASHES = "rng.key_hashes"
+POSMLP_ROWS = "posmlp.rows"     # + "." + the PosMLP's output_type
 
 _SPANS = {}      # name -> its span, made once
 _STACK = []      # the open spans: [name, start ns, children's ns, range]
