@@ -12,8 +12,10 @@ minutes on an NVIDIA H100, the kernels' build included). It
    ``torch.index_select``, ``torch.nonzero``). The march, the fused bounce
    and its adjoint, the row gather, the row scatter-add (by caller:
    material adjoint, sky adjoint, compaction scatters), ``compact_sel``,
-   the envmap sampler and fetch and the bounce's record (``bounce_record``,
-   also at the relight's shape) are timed at every shape that holds at
+   the envmap sampler and fetch, the bounce's record (``bounce_record``,
+   also at the relight's shape) and the jittered primary vertex
+   (``primary_state``, at the main path's and the relight's rows, with and
+   without the position) are timed at every shape that holds at
    least a tenth of their launches on the main path, on inputs recorded
    from one compacted trace chunk of the scene (its rays, indices,
    uniforms, packed records and dead rows; the fused bounce's incoming
@@ -32,7 +34,8 @@ minutes on an NVIDIA H100, the kernels' build included). It
    and unaligned views. The
    envmap sampler's rows and columns must equal its plain version's on
    every query, its directions and pdfs lie within 2 units in the last
-   place; the bounce's record must equal its plain version's bit for bit
+   place; the bounce's record and the primary vertex must equal their
+   plain versions' bit for bit
    (the envmap pdf kernel, which only the generic paths launch, is timed
    at its worst case). The adjoint's envmap gradient is held to a float64 sum of the
    same taps, at those shapes and on a one-hot envmap (every NEE sample
@@ -1390,6 +1393,42 @@ def check_kernels(torch, _lib, caps, by_shape, bench_info):
           by_shape_path10=rows_10, relight_shape=list(shp_rl),
           jax_function="none (no TPU kernel; replaces the JAX package's "
           "XLA-fused record ops, materialist_tpu/render/shader.py)")
+
+    # P: the jittered primary vertex in one launch, bit for bit against its
+    # plain version, on the photo scene's G-buffer and a lattice draw, at
+    # the main path's 4 × 512² rows (siren512's) and the relight's 8 × 512²,
+    # each with the position (the trace's call) and without (the shade's);
+    # the first is the entry's headline
+    from materialist_tpu_torch.ops.kernels import primary as pk
+
+    def primary_row(s_p, pos):
+        h_p, w_p = gbuf_p.dist.shape
+        u = rng.lattice(rng.key(SEED + 2), s_p, h_p * w_p,
+                        shader._LATTICE_G[2], dev)
+        args = (u, gbuf_p.dist, gbuf_p.normal_geo, gbuf_p.valid, 0, 0.5,
+                cam_p)
+        got = pk.primary_state(*args, pos)
+        want = pk.primary_state_plain(*args)
+        bad = [int((a.view(torch.int32) != b.view(torch.int32)).sum()
+                   if a.is_floating_point() else (a != b).sum())
+               for a, b in zip(got, want) if a is not None]
+        shp = (s_p * h_p * w_p, h_p, w_p, int(pos))
+        log(f"  primary_state {list(shp)}: elements that differ from the "
+            f"plain version's {bad} (allowed 0)")
+        ms = dev_ms(lambda: pk.primary_state(*args, pos))
+        return dict(shape=list(shp), ok=not any(bad), ms=ms,
+                    device_ms=ms.device_ms,
+                    plain_ms=cuda_ms(lambda: pk.primary_state_plain(*args),
+                                     iters=5),
+                    bound_ms=roofline("primary_state", shp)[0])
+
+    rows_p = [primary_row(s_p, pos) for s_p in (4, 8)
+              for pos in (True, False)]
+    entry("primary_state", "primary.cu", None, all(r["ok"] for r in rows_p),
+          0.0, rows_p[0]["ms"], rows_p[0]["plain_ms"],
+          roofline("primary_state", rows_p[0]["shape"]), by_shape=rows_p,
+          jax_function="none (no TPU kernel; XLA fuses "
+          "materialist_tpu/render/shader.py:323)")
 
     # E: the sky fetch of a chunk, one query per pixel (its only shape on
     # the main path and on path 10)

@@ -26,8 +26,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD = os.path.join(PKG_DIR, "build")
 LIB_PATH = os.path.join(BUILD, "libmaterialist_kernels.so")
-SOURCES = ("envkernels.cu", "gathers.cu", "march_pair.cu", "rowops.cu",
-           "shadebounce.cu", "threefry.cu")
+SOURCES = ("envkernels.cu", "gathers.cu", "march_pair.cu", "primary.cu",
+           "rowops.cu", "shadebounce.cu", "threefry.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds where its
 # plain version does (the march's hit decisions follow the float order)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,7 +38,7 @@ LAUNCHES = {name: 0 for name in (
     "row_gather", "row_scatter_add", "row_scatter_add_bf16",
     "row_scatter_add_coherent", "compact_sel", "env_sample_dir",
     "env_pdf_dir", "env_lookup_bilinear", "onehot_gather", "vreg_gather",
-    "threefry_draw", "bounce_record")}
+    "threefry_draw", "bounce_record", "primary_state")}
 
 # (name, shape tuple) -> launches; each wrapper says what its shape lists
 LAUNCHES_BY_SHAPE = {}
@@ -153,6 +153,7 @@ _SIGNATURES = {
     "threefry_launch": [_P, _I, _L, _I, _I, _U, _U, _F, _F, _P],
     "bounce_record_launch": ([_P] * 8 + [_L] * 2 + [_P] + [_L] * 3 + [_P] * 3
                              + [_I] * 4 + [_F] * 2 + [_P]),
+    "primary_state_launch": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
 }
 
 

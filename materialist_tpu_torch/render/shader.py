@@ -36,6 +36,7 @@ from materialist_tpu_torch.ops import envmap as em
 from materialist_tpu_torch.ops.kernels import march as mk
 from materialist_tpu_torch.ops.kernels.envkernels import bounce_record
 from materialist_tpu_torch.ops.kernels.gather import onehot_gather
+from materialist_tpu_torch.ops.kernels.primary import primary_state
 from materialist_tpu_torch.ops.kernels.rowops import (
     _f32_exact_join, _f32_exact_split, compact_sel, gather_coherent_diff,
     gather_rows_coherent, row_gather, scatter_add_coherent_into)
@@ -197,61 +198,18 @@ def _stream_uniform(cfg: RenderConfig, key, s: int, n_loc: int, dims: int,
 
 
 def _primary_state(key, cfg: RenderConfig, cam: Camera, gbuf: GBuffer,
-                   s: int, film=None):
+                   s: int, film=None, pos: bool = True):
     """Continuous-AA primary vertex (box filter of halfwidth film_jitter):
     bilinear, validity-weighted geometry at the jittered film position,
-    the taps read from the full maps. Returns (nrm_geo0, pos0, wo0,
-    valid0), all (s, n_loc, ...) for the film rows of ``film``."""
+    the taps read from the full maps (kernel P on the card). Returns
+    (nrm_geo0, pos0, wo0, valid0), all (s, n_loc, ...) for the film rows
+    of ``film``; pos0 is None on the card where ``pos`` is False."""
     h, w = gbuf.dist.shape
     off, n_rows = _film_base(film, h, w)
-    n = n_rows * w
-    dev = gbuf.dist.device
-    r = min(cfg.film_jitter, 0.5)
-    jit = (_stream_uniform(cfg, rng.fold_in(key, 991), s, n, 2, dev)
-           * 2.0 - 1.0) * r
-    ju, jv = jit[..., 0], jit[..., 1]
-    base = torch.arange(off, off + n, dtype=torch.int32, device=dev)
-    ub = base % w
-    vb = base // w
-    cu = ub.to(torch.float32) + 0.5 + ju
-    cv = vb.to(torch.float32) + 0.5 + jv
-
-    geo = prof.cat([gbuf.dist[..., None], gbuf.normal_geo,
-                    gbuf.valid[..., None].to(torch.float32)], dim=-1)
-    pad = torch.nn.functional.pad(geo.permute(2, 0, 1)[None], (1, 1, 1, 1),
-                                  mode="replicate")[0].permute(1, 2, 0)
-    pad = pad.reshape(-1, 5).detach()
-
-    fu = cu - 0.5
-    fv = cv - 0.5
-    u0 = torch.floor(fu)
-    v0 = torch.floor(fv)
-    wu = (fu - u0)[..., None]
-    wv = (fv - v0)[..., None]
-    du0 = torch.clamp(u0.to(torch.int32) - ub, -1, 0)
-    dv0 = torch.clamp(v0.to(torch.int32) - vb, -1, 0)
-
-    def tap(dv, du, wgt):
-        g = pad[((vb + 1 + dv) * (w + 2) + (ub + 1 + du)).long()]
-        ok = g[..., 4:5]
-        return g * (wgt * ok), wgt * ok
-
-    t00, w00 = tap(dv0, du0, (1.0 - wu) * (1.0 - wv))
-    t01, w01 = tap(dv0, du0 + 1, wu * (1.0 - wv))
-    t10, w10 = tap(dv0 + 1, du0, (1.0 - wu) * wv)
-    t11, w11 = tap(dv0 + 1, du0 + 1, wu * wv)
-    wsum = w00 + w01 + w10 + w11
-    g = (t00 + t01 + t10 + t11) / torch.clamp_min(wsum, 1e-9)
-    valid0 = wsum[..., 0] > 1e-6
-    dist = g[..., 0]
-    nrm_geo = _normalize9(g[..., 1:4])
-
-    x = (cu - cam.cx) / cam.focal
-    y = -(cv - cam.cy) / cam.focal
-    d = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
-    pos0 = d * dist[..., None]
-    wo0 = -d / torch.clamp_min(norm(d), 1e-9)
-    return nrm_geo, pos0, wo0, valid0
+    u = _stream_uniform(cfg, rng.fold_in(key, 991), s, n_rows * w, 2,
+                        gbuf.dist.device)
+    return primary_state(u, gbuf.dist, gbuf.normal_geo, gbuf.valid, off,
+                         min(cfg.film_jitter, 0.5), cam, pos)
 
 
 def _pos_from_idx(cam: Camera, idx, dist):
@@ -620,7 +578,7 @@ def _shade_chunk(key, records, cfg: RenderConfig, cam: Camera,
                         wo = prev_dir(records[b - 1].wi, sel)
                     if b == 0 and cfg.film_jitter > 0.0:
                         nrm_geo, _, wo, valid0 = _primary_state(
-                            key, cfg, cam, gbuf, s, film)
+                            key, cfg, cam, gbuf, s, film, pos=False)
                         blob = bsdf.table[rows]
                         alive = alive & valid0
                     elif b == 0:

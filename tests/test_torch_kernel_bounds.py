@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s kernel bounds come from the benchmark's own
 formulas, ``perfbench/roofline/<counter>.py``, at the shape each launch
 counter records, and give PERF.md's kernel table its bound column at the
-precision it prints (4 decimals): B, B′, R, H, D, E and ``compact_sel``."""
+precision it prints (4 decimals): B, B′, R, H, D, E, ``compact_sel`` and P."""
 
 import os
 import subprocess
@@ -33,6 +33,8 @@ ROWS = [
     ("env_lookup_bilinear", (1048576, 16, 32), "0.0088"),
     # compact_sel: (flags, cap)
     ("compact_sel", (8388608, 1048576), "0.0038"),
+    # P: siren512's trace chunk, 4 × 512², the position written
+    ("primary_state", (1048576, 512, 512, 1), "0.0154"),
 ]
 
 

@@ -946,3 +946,69 @@ def test_bounce_record_trace_chunk_equals_the_plain_path(card, scene,
                     bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
                     x, y = x.view(bits), y.view(bits)
                 assert torch.equal(x, y), (b, field)
+
+
+# (film h, w, samples, film rows (row0, n_rows) or None, jitter, pos0
+# written): siren512's and the relight's trace chunks, slices at the top
+# and the bottom edge, the CPU test's odd width, and the shade's call,
+# which reads no position
+PRIMARY_CASES = {
+    "siren512": (512, 512, 4, None, 0.5, True),
+    "relight": (512, 512, 8, None, 0.5, True),
+    "top_slice": (512, 512, 8, (0, 32), 0.5, True),
+    "bottom_slice": (512, 512, 4, (448, 64), 0.25, True),
+    "odd_w37": (24, 37, 4, None, 0.5, True),
+    "odd_w37_bottom": (24, 37, 8, (19, 5), 0.25, True),
+    "shade_no_pos": (512, 512, 4, None, 0.5, False),
+}
+# uniforms on the taps' edges: the jitter at -r, 0, just below +r
+PRIMARY_EDGE_U = [[0.0, 0.0], [0.5, 0.5], [0.99999994, 0.99999994],
+                  [0.0, 0.99999994], [0.25, 0.75]]
+
+
+def _primary_gbuffer(card, h, w):
+    """Two depth steps; invalid pixels along the first column, the last
+    row and at 5% inside."""
+    g = torch.Generator().manual_seed(h * 1000 + w)
+    depth = 2.0 + 0.3 * torch.rand((h, w), generator=g)
+    depth[h // 5:h // 2, w // 4:w // 2] -= 0.7
+    mask = (torch.rand((h, w), generator=g) < 0.05).float()
+    mask[:, 0] = 1.0
+    mask[-1, :] = 1.0
+    return make_gbuffer(depth, Camera(h, w), flip_depth=False, mask=mask,
+                        device=card)
+
+
+@pytest.mark.parametrize("case", list(PRIMARY_CASES))
+def test_primary_state_bit_equal_to_its_plain_version(card, case):
+    """P against its plain version run on the card (the chain of PyTorch
+    operations the trace and the shade ran before), bit for bit in all
+    four outputs, on the lattice draw with edge uniforms in its first
+    rows; one launch, counted at (rows, h, w, pos0 written)."""
+    from materialist_tpu_torch.ops.kernels import _lib
+    from materialist_tpu_torch.ops.kernels import primary as pk
+    h, w, s, rows, r, pos = PRIMARY_CASES[case]
+    gb = _primary_gbuffer(card, h, w)
+    cam = Camera(h, w)
+    off, n_rows = (0, h) if rows is None else (rows[0] * w, rows[1])
+    n = n_rows * w
+    u = rng.lattice(rng.key(41), s, n, shader._LATTICE_G[2], card)
+    u[0, :len(PRIMARY_EDGE_U)] = torch.tensor(PRIMARY_EDGE_U, device=card)
+    _lib.reset_launches()
+    got = pk.primary_state(u, gb.dist, gb.normal_geo, gb.valid, off, r, cam,
+                           pos)
+    assert _lib.LAUNCHES_BY_SHAPE == {
+        ("primary_state", (s * n, h, w, int(pos))): 1}
+    want = pk.primary_state_plain(u, gb.dist, gb.normal_geo, gb.valid, off,
+                                  r, cam)
+    assert _lib.LAUNCHES["primary_state"] == 1
+    assert (got[1] is None) == (not pos)
+    for name, a, b in zip(("nrm_geo0", "pos0", "wo0", "valid0"), got, want):
+        if a is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        diff = a != b
+        assert not diff.any(), f"{name}: {int(diff.sum())} elements differ"
+    assert 0 < int(want[3].sum()) < want[3].numel()
